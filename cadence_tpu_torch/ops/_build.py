@@ -1,0 +1,119 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel is one source, ``csrc/<name>.cu``, with a plain C interface.
+At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``build/torch_kernels/`` at the repository root and
+loaded with ``ctypes``; no PyTorch headers are involved, so a build takes
+seconds. The library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and a stale library is never loaded.
+
+``build(names)`` compiles several kernels at once, one ``nvcc`` process
+each, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# C signatures of each kernel library's entry points: name -> (restype,
+# argtypes). Pointers and the stream are c_void_p, or ctypes would pass
+# them as 32-bit ints.
+_SIGNATURES = {
+    "replay_fsm": {
+        "cadence_replay_fsm": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+        ]),
+        "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each kernel built in
+# this process
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found: building the CUDA kernels needs the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def _start(nvcc: str, name: str):
+    out = _lib_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile the named kernels that are not built yet, in parallel."""
+    with _lock:
+        todo = [n for n in names if not _lib_path(n).exists()]
+        if not todo:
+            return
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = [(n, _start(nvcc, n)) for n in todo]
+        errors = []
+        for name, (proc, tmp, out) in jobs:
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed to build {name}:\n{log}")
+            else:
+                # atomic: a reader never sees a half-written library
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
+        return _libs[name]
+
+
+KERNELS = tuple(_SIGNATURES)
