@@ -42,6 +42,14 @@ _SIGNATURES = {
         ]),
         "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "affine_segscan": {
+        "cadence_affine_segscan": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]),
+        "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,13 @@ package's ``ops/dispatch.py``:
   into geometric depth classes first, so a few deep stragglers don't
   stretch every lane.
 
+Under ``scan_mode="assoc"`` a batch whose event types are all provably
+affine replays in parallel in time (``ops/assoc.py``, the default
+``impl="resolve"``): unpacked batches in ``hist_assoc`` mode, lane-packed
+ones in ``lanes_assoc`` mode, staged through the same pinned copy
+stream. A batch with a nonaffine type keeps the sequential kernel.
+``"auto"`` and ``"scan"`` always run the sequential kernel.
+
 Usage::
 
     with DeviceDispatcher(caps) as d:
@@ -38,9 +45,10 @@ import numpy as np
 import torch
 
 from . import schema as S
+from .assoc import _assoc_core, assoc_lanes_operands, classify_types
 from .grid import round_scan_len, staging_depth
 from .pack import pack_histories, pack_lanes
-from .replay import check_scan_mode
+from .replay import check_scan_mode, type_signature
 from .replay_cuda import narrow_events_teb, replay_scan_packed, replay_scan_teb
 
 
@@ -83,16 +91,33 @@ def depth_buckets(
 
 @dataclasses.dataclass
 class _Staged:
-    """One packed batch, its tensors on their way to the device."""
+    """One packed batch, its tensors on their way to the device.
+
+    ``mode``: "hist" / "lanes" (the sequential kernel's unpacked and
+    packed routes) or "hist_assoc" / "lanes_assoc" (the parallel-in-time
+    replay; ``events`` then stays batch-major [L, T, EV_N] int32)."""
 
     batch_id: Any
     packed: Any
+    mode: str
     events: torch.Tensor
     base: Optional[np.ndarray]
     wide_cols: tuple
     state0: S.StateTensors
     init: Optional[S.StateTensors]   # lanes mode, checkpoint resume
     ready: Optional[torch.cuda.Event]   # None on the CPU
+    rows: int                        # result rows that hold histories
+    # lanes_assoc: (hist_bm, seg_pos, seg_lane, seg_start) on the device
+    geometry: tuple = ()
+    types: Optional[tuple] = None    # assoc modes: the type signature
+
+    def tensors(self):
+        """Every device tensor of the batch."""
+        out = [self.events, *self.geometry]
+        for st in (self.state0, self.init):
+            if st is not None:
+                out += [getattr(st, f) for f in S.STATE_ROW_FIELDS]
+        return out
 
 
 class DeviceDispatcher:
@@ -103,8 +128,9 @@ class DeviceDispatcher:
     the int16 narrow stream where a batch allows it (half the bytes of
     both the copy and the kernel's event stream; bit-identical result).
     ``tb`` is the packed route's time block: lane packing aligns segments
-    to it. Every ``scan_mode`` runs the sequential kernel. Results come
-    back in submission order from :meth:`results`."""
+    to it. ``scan_mode="assoc"`` sends affine batches to the
+    parallel-in-time replay (module docstring). Results come back in
+    submission order from :meth:`results`."""
 
     def __init__(
         self,
@@ -181,18 +207,68 @@ class DeviceDispatcher:
                 self._staged.put(DispatchError(batch_id, e))
 
     def _pack(self, batch_id, histories, resume) -> _Staged:
-        init = None
+        assoc = self.scan_mode == "assoc"
+        present = None
         if self.lane_pack:
             packed = pack_lanes(
                 histories, caps=self.caps, target_lane_len=self.lane_len,
                 seg_align=self.tb, domain_resolver=self.domain_resolver,
                 resume=resume)
+            rows = packed.n_histories
+            if assoc:
+                present = packed.present_types
+        else:
+            # the assoc modes pad the batch to the round_scan_len grid, as
+            # the reference dispatcher does
+            packed = pack_histories(
+                histories, caps=self.caps,
+                pad_batch_to=round_scan_len(len(histories)) if assoc
+                else None,
+                domain_resolver=self.domain_resolver, resume=resume)
+            rows = len(histories)
+            if assoc:
+                present = [int(t) for t in
+                           np.unique(packed.events[:, :, S.EV_TYPE])
+                           if t >= 0]
+        # each batch decides on its own type set: one batch with a
+        # nonaffine type must not send later batches to the sequential
+        # kernel
+        if present is not None and not classify_types(present)[1]:
+            return self._stage_assoc(batch_id, packed, rows, present)
+        return self._stage_scan(batch_id, packed, rows)
+
+    def _stage_assoc(self, batch_id, packed, rows: int,
+                     present) -> _Staged:
+        """Stage a batch for the parallel-in-time replay: batch-major
+        int32 events, the initial rows and, lane-packed, the segment
+        geometry. The replay skips the masks of groups ``present`` does
+        not touch."""
+        if self.lane_pack:
+            init, *geometry = assoc_lanes_operands(packed)
+        else:
+            init = (packed.initial if packed.initial is not None
+                    else S.empty_state(packed.batch, self.caps))
+            geometry = []
+        host = ([packed.events] + [getattr(init, f)
+                                   for f in S.STATE_ROW_FIELDS] + geometry)
+        dev, ready = self._to_device(host)
+        n = len(S.STATE_ROW_FIELDS)
+        return _Staged(
+            batch_id=batch_id, packed=packed,
+            mode="lanes_assoc" if self.lane_pack else "hist_assoc",
+            events=dev[0], base=None, wide_cols=(),
+            state0=S.StateTensors(*dev[1 : 1 + n]), init=None, ready=ready,
+            geometry=tuple(dev[1 + n :]),
+            types=type_signature(present), rows=rows)
+
+    def _stage_scan(self, batch_id, packed, rows: int) -> _Staged:
+        """Stage a batch for the sequential kernel: the field-major event
+        stream (int16 where the batch narrows) and the lane carries."""
+        init = None
+        if self.lane_pack:
             state0 = packed.lane_state0()
             init = packed.initial
         else:
-            packed = pack_histories(
-                histories, caps=self.caps,
-                domain_resolver=self.domain_resolver, resume=resume)
             state0 = (packed.initial if packed.initial is not None
                       else S.empty_state(packed.batch, self.caps))
         teb, base, wide = packed.teb(), None, ()
@@ -205,11 +281,12 @@ class DeviceDispatcher:
         dev, ready = self._to_device(host)
         n = len(S.STATE_ROW_FIELDS)
         return _Staged(
-            batch_id=batch_id, packed=packed, events=dev[0], base=base,
-            wide_cols=wide,
+            batch_id=batch_id, packed=packed,
+            mode="lanes" if self.lane_pack else "hist", events=dev[0],
+            base=base, wide_cols=wide,
             state0=S.StateTensors(*dev[1 : 1 + n]),
             init=S.StateTensors(*dev[1 + n :]) if init is not None else None,
-            ready=ready)
+            ready=ready, rows=rows)
 
     def _to_device(self, arrays):
         """Copy host arrays to the device: staged in pinned memory and
@@ -244,24 +321,29 @@ class DeviceDispatcher:
             # on the copy stream, so tell the allocator they are used here
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(item.ready)
-            for st in (item.state0, item.init):
-                if st is not None:
-                    for f in S.STATE_ROW_FIELDS:
-                        getattr(st, f).record_stream(cur)
-            item.events.record_stream(cur)
+            for t in item.tensors():
+                t.record_stream(cur)
         packed = item.packed
-        if not self.lane_pack:
-            return replay_scan_teb(item.state0, item.events, self.caps,
-                                   base=item.base, wide_cols=item.wide_cols)
-        out0 = S.state_from_numpy(
-            S.empty_state(packed.n_histories, self.caps), self.device)
-        kw = {}
-        if item.init is not None:
-            kw = dict(init=item.init, reset_row=packed.reset_rows())
-        _, final = replay_scan_packed(
-            item.state0, out0, item.events, packed.seg_end,
-            packed.out_row, self.caps, tb=self.tb, base=item.base,
-            wide_cols=item.wide_cols, **kw)
+        if item.mode in ("hist_assoc", "lanes_assoc"):
+            # field-major column planes, transposed on the device
+            evf = item.events.permute(2, 0, 1).contiguous()
+            final = _assoc_core(evf, item.state0, *item.geometry,
+                                types=item.types)
+        elif item.mode == "hist":
+            final = replay_scan_teb(item.state0, item.events, self.caps,
+                                    base=item.base, wide_cols=item.wide_cols)
+        else:
+            out0 = S.state_from_numpy(
+                S.empty_state(packed.n_histories, self.caps), self.device)
+            kw = {}
+            if item.init is not None:
+                kw = dict(init=item.init, reset_row=packed.reset_rows())
+            _, final = replay_scan_packed(
+                item.state0, out0, item.events, packed.seg_end,
+                packed.out_row, self.caps, tb=self.tb, base=item.base,
+                wide_cols=item.wide_cols, **kw)
+        if final.batch > item.rows:
+            final = final.map(lambda x: x[: item.rows])
         return final
 
     # -- consumer side ----------------------------------------------------

@@ -16,7 +16,18 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    narrow, with kernel timing (CUDA events) against the memory bound;
 4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix,
    every snapshot against the plain route on the CPU;
-5. the kernel list with launch counts on the main path, then the device
+5. ``segscan_vs_plain`` (run right after phase 2, outside the counted
+   windows): the segmented affine-scan kernel against its plain version
+   on seeded random streams (L = 4,096, C = 24, T = 1,024 and 1,000;
+   ``mul`` in {0, 1} and full-range int32);
+6. ``assoc_main_path``: the parallel-in-time replay of 16,384 tiled
+   retry_deep histories, ``replay_assoc`` (both impls) and
+   ``replay_packed(scan_mode="assoc")`` against the FSM route field by
+   field, with the scan kernel's time at the path's operands;
+7. ``assoc_lanes``: ``replay_assoc_lanes(impl="segscan")`` and
+   ``replay_stream(scan_mode="assoc")``, bucketed and unbucketed, on the
+   phase-4 mix, every snapshot against the FSM route's;
+8. the kernel list with launch counts on the main paths, then the device
    line.
 
 Any failure exits non-zero without the final line. Needs one CUDA card;
@@ -45,6 +56,11 @@ PLAIN_CHECK_LANES = 4096
 RANDOM_B, RANDOM_T = 2048, 1024
 # phase 4: the mixed_depth shape
 N_SHALLOW, N_DEEP = 1800, 200
+# phase 5: random affine streams for the scan kernel
+SEGSCAN_L, SEGSCAN_C, SEGSCAN_TS = 4096, 24, (1024, 1000)
+# phase 6: histories of the assoc main path (the segscan form's [T, L, 24]
+# int32 streams at 65,536 lanes would need 25.8 GB for four of them alone)
+ASSOC_HISTORIES = 16384
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; int32 ALU ops/s is
 # half the 67 TFLOP/s float32 rate (64 INT32 lanes per SM against 128
@@ -55,6 +71,9 @@ PEAK_INT32_OPS_S = 33.5e12
 # transition code: field reconstruction, preamble, version history,
 # switch and the largest group's writes
 FSM_OPS_PER_EVENT = 64
+# integer operations one element-step of the affine scan costs: two
+# multiplies and one add (the reset select is not counted)
+SEGSCAN_OPS_PER_ELEMENT = 3
 
 
 def emit(obj) -> None:
@@ -90,6 +109,35 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_ms_each(fn, reps: int = 21, warmup: int = 2):
+    """Device milliseconds of each of ``reps`` calls of ``fn`` (one pair
+    of CUDA events per call, after ``warmup`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev]
+
+
+def smi_clocks() -> str:
+    """The card's SM and memory clocks (MHz), power draw, temperature and
+    its throttle reasons, as ``nvidia-smi`` reads them now."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return res.stdout.strip() or res.stderr.strip()
 
 
 def bound(event_bytes: int, rows_padded: int, lanes: int,
@@ -140,7 +188,8 @@ def phase_device(torch, _build):
     for name in _build.KERNELS:
         _build.load(name)
     # ptxas's register and spill lines, one per kernel instantiation
-    ptxas = [ln.strip() for log in _build.build_logs.values()
+    ptxas = [f"{name}: {ln.strip()}"
+             for name, log in _build.build_logs.items()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "device", "nvidia_smi": smi, "ptxas": ptxas,
@@ -321,7 +370,9 @@ def stream_snapshots(results, n, unpack):
 
 def phase_stream(torch, S, replay_stream, hs, **kw):
     """The dispatcher route on the card; snapshots fetched to the host.
-    Unbucketed results gain their indices, as bucketed ones carry."""
+    Unbucketed results gain their indices, as bucketed ones carry (an
+    assoc batch's pack is padded to the grid; its final holds the
+    histories' rows only)."""
     caps = S.Capacities(**RETRY_CAPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -329,12 +380,195 @@ def phase_stream(torch, S, replay_stream, hs, **kw):
     if not kw.get("bucket"):
         base, indexed = 0, []
         for packed, final in res:
-            indexed.append((range(base, base + packed.batch), packed, final))
-            base += packed.batch
+            rows = final.exec_info.shape[0]
+            indexed.append((range(base, base + rows), packed, final))
+            base += rows
         res = indexed
     res = [(i, p, S.state_to_numpy(f)) for i, p, f in res]
     wall = time.perf_counter() - t0
     return res, wall
+
+
+def segscan_bound(T: int, L: int, C: int, rst_bytes: int):
+    """Least time of the affine scan: mul and add read, pm and pa written
+    once each, rst read once, against its integer work."""
+    nbytes = 4 * T * L * C * 4 + rst_bytes
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = T * L * C * SEGSCAN_OPS_PER_ELEMENT / PEAK_INT32_OPS_S * 1e3
+    return nbytes, max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_segscan_vs_plain(torch, np, AC):
+    """The scan kernel against its plain version on random streams."""
+    L, C = SEGSCAN_L, SEGSCAN_C
+    cases = []
+    for ti, T in enumerate(SEGSCAN_TS):
+        for vi, values in enumerate(("mul01", "full_range")):
+            rng = np.random.default_rng(200 + 2 * ti + vi)
+            if values == "mul01":
+                mul = rng.integers(0, 2, (T, L, C), dtype=np.int32)
+                add = rng.integers(-1000, 1000, (T, L, C), dtype=np.int32)
+            else:
+                mul = rng.integers(-2**31, 2**31 - 1, (T, L, C),
+                                   dtype=np.int32, endpoint=True)
+                add = rng.integers(-2**31, 2**31 - 1, (T, L, C),
+                                   dtype=np.int32, endpoint=True)
+            rst = rng.random((T, L)) < 0.05
+            rst[0] = True
+            mul_d, add_d = torch.from_numpy(mul).cuda(), torch.from_numpy(
+                add).cuda()
+            rst_d = torch.from_numpy(rst.astype(np.int32)).cuda()
+            got = AC.affine_segscan(mul_d, add_d, rst_d)
+            torch.cuda.synchronize()
+            want = AC.affine_segscan_plain(mul_d, add_d, rst_d)
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            cases.append({"T": T, "L": L, "C": C, "values": values,
+                          "resets": int(rst.sum()), "max_abs_err": err,
+                          "equal": all(torch.equal(g, w)
+                                       for g, w in zip(got, want))})
+            del mul_d, add_d, rst_d, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "segscan_vs_plain", "cases": cases})
+    bad = [c for c in cases if not c["equal"]]
+    check(not bad, f"scan kernel disagrees with plain: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+def timed_call(torch, fn):
+    """(result, host wall s, peak device bytes) of one call that ends in
+    a synchronize."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def device_busy(torch, fn):
+    """One call of ``fn`` under torch.profiler: the count of device
+    activities (kernels, copies), their summed device ms, the five
+    names that took the most of it, and the profiled call's wall s.
+    They run on one stream, so their sum over a wall is the device's
+    busy share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_activities=len(dev),
+                device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+                top_ms=dict(top), profiled_wall_s=wall)
+
+
+def profile_routes(torch, S, A, RC, tiled):
+    """Device busy time of one warm call of each replay route at the
+    assoc path's lanes, from device-resident inputs."""
+    caps = tiled.caps
+    evf = S.host_tensor(tiled.events).cuda().permute(2, 0, 1).contiguous()
+    teb = S.host_tensor(tiled.teb()).cuda()
+    state0 = S.empty_state(tiled.batch, caps)
+    state0_d = S.state_from_numpy(state0, "cuda")
+    routes = {f"replay_assoc[{impl}]": (lambda impl=impl: A.replay_assoc(
+        state0, events_fm=evf, impl=impl, device="cuda"))
+        for impl in ("segscan", "resolve")}
+    routes["replay_scan_teb"] = lambda: RC.replay_scan_teb(state0_d, teb,
+                                                           caps)
+    out = {}
+    for name, fn in routes.items():
+        fn()                                       # warm
+        out[name] = device_busy(torch, fn)
+    del evf, teb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_assoc_main_path(torch, S, A, tiled):
+    """The parallel-in-time replay on the card, from device-resident
+    field-major events, each impl called twice (the first call loads
+    the torch kernels it uses); returns {impl: (final, [wall s, wall s],
+    peak bytes)}. The caller counts launches around it."""
+    evf = S.host_tensor(tiled.events).cuda().permute(2, 0, 1).contiguous()
+    state0 = S.empty_state(tiled.batch, tiled.caps)
+    out = {}
+    for impl in ("segscan", "resolve"):
+        runs = [timed_call(torch, lambda: A.replay_assoc(
+            state0, events_fm=evf, impl=impl, device="cuda"))
+            for _ in range(2)]
+        out[impl] = (runs[-1][0], [r[1] for r in runs],
+                     max(r[2] for r in runs))
+    del evf
+    return out
+
+
+def time_segscan(torch, S, A, AC, tiled):
+    """The scan kernel, its plain version and its bound at the exact
+    [T, L, C] operands the segscan route gives it; the kernel's ms is the
+    median of 21 launches, beside their least and most."""
+    evf = S.host_tensor(tiled.events).cuda().permute(2, 0, 1).contiguous()
+    cx = A._make_ctx(evf, S.state_from_numpy(
+        S.empty_state(tiled.batch, tiled.caps), "cuda"))
+    mul, add, _, _, rst = A._emit_affine_exec(cx)
+    rst_t = rst.T.contiguous()                   # bool, as the path passes
+    del cx, evf
+    T, L, C = mul.shape
+    got = AC.affine_segscan(mul, add, rst_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = AC.affine_segscan_plain(mul, add, rst_t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    # each launch timed alone, with the clocks read before and after, so
+    # the spread between launches and its cause show in the record
+    clocks_before = smi_clocks()
+    each = sorted(cuda_ms_each(lambda: AC.affine_segscan(mul, add, rst_t)))
+    clocks_after = smi_clocks()
+    ms = each[len(each) // 2]
+    nbytes, bound_ms, bound_by = segscan_bound(
+        T, L, C, rst_t.numel() * rst_t.element_size())
+    del mul, add, rst_t
+    torch.cuda.empty_cache()
+    return dict(shape=f"T={T} L={L} C={C}", ms=ms, ms_min=each[0],
+                ms_max=each[-1], launches_timed=len(each),
+                clocks_before=clocks_before, clocks_after=clocks_after,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                achieved_GBps=nbytes / (ms * 1e-3) / 1e9,
+                share_of_bound=bound_ms / ms, max_abs_err=err, equal=equal)
+
+
+def time_fsm_at(torch, S, RC, tiled):
+    """The FSM route at the assoc path's lanes: device-resident
+    ``replay_scan_teb`` wall and the kernel's CUDA-event time."""
+    caps = tiled.caps
+    rm = RC.RowMap(caps)
+    teb = S.host_tensor(tiled.teb()).cuda()
+    state0 = S.state_from_numpy(S.empty_state(tiled.batch, caps), "cuda")
+    _, wall, peak = timed_call(
+        torch, lambda: RC.replay_scan_teb(state0, teb, caps))
+    rows0 = RC.state_to_rows(state0, rm)
+    out = torch.empty_like(rows0)
+    ms = cuda_ms(lambda: RC.replay_rows(teb, rows0, caps, out=out))
+    del teb
+    torch.cuda.empty_cache()
+    return dict(replay_scan_teb_wall_s=wall, kernel_ms=ms, peak_bytes=peak)
 
 
 def main() -> int:
@@ -351,6 +585,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cadence_tpu_torch.core.enums import EventType as E
     from cadence_tpu_torch.ops import _build
+    from cadence_tpu_torch.ops import assoc as A
+    from cadence_tpu_torch.ops import assoc_cuda as AC
     from cadence_tpu_torch.ops import pack as P
     from cadence_tpu_torch.ops import replay_cuda as RC
     from cadence_tpu_torch.ops import schema as S
@@ -364,6 +600,9 @@ def main() -> int:
 
     # 2. kernel against plain on random events
     rand_err = phase_kernel_vs_plain(torch, S, E, RC)
+
+    # 5. the scan kernel against plain on random streams, beside phase 2
+    seg_rand_err = phase_segscan_vs_plain(torch, np, AC)
 
     # host inputs of the main path, made before the counted window
     t0 = time.perf_counter()
@@ -429,8 +668,100 @@ def main() -> int:
           f"stream snapshots differ from plain: {mism} bucketed, "
           f"{mism_hist} unbucketed")
 
-    # 5. kernels and device
+    # 6. the assoc main path, launches counted from zero
+    caps = m["caps"]
+    tiled = m["tiled"]
+    na = min(ASSOC_HISTORIES, tiled.batch)
+    sub = P.PackedHistories(
+        events=tiled.events[:na], lengths=tiled.lengths[:na],
+        side=tiled.side[:na], caps=caps, epoch_s=tiled.epoch_s)
+    # the FSM route's [T, EV_N, B] host layout, made outside the timed
+    # calls as phase 3 makes it
+    t0 = time.perf_counter()
+    sub.teb()
+    sub_teb_s = time.perf_counter() - t0
+    AC.affine_segscan.launches = 0
+    RC.replay_rows.launches = 0
+    assoc = phase_assoc_main_path(torch, S, A, sub)
+    facade, facade_wall, facade_peak = timed_call(
+        torch, lambda: replay_packed(sub, scan_mode="assoc", device="cuda"))
+    seg_launches = AC.affine_segscan.launches
+    fsm_in_assoc = RC.replay_rows.launches
+
+    want_sub, scan_wall, _ = timed_call(
+        torch, lambda: replay_packed(sub, scan_mode="scan", device="cuda"))
+    finals = {f"replay_assoc[{impl}]": S.state_to_numpy(res)
+              for impl, (res, _, _) in assoc.items()}
+    finals["replay_packed[assoc]"] = facade
+    diverged = {name: [f for f in S.STATE_ROW_FIELDS
+                       if not np.array_equal(getattr(fin, f),
+                                             getattr(want_sub, f))]
+                for name, fin in finals.items()}
+    seg_timing = time_segscan(torch, S, A, AC, sub)
+    fsm_at = time_fsm_at(torch, S, RC, sub)
+    busy = profile_routes(torch, S, A, RC, sub)
+    emit({"phase": "assoc_main_path", "config": "retry_deep",
+          "histories": na, "T": caps.max_events,
+          "host_teb_s": sub_teb_s,
+          "wall_s": {f"replay_assoc[{impl}]": w
+                     for impl, (_, w, _) in assoc.items()}
+          | {"replay_packed[assoc]": facade_wall,
+             "replay_packed[scan]": scan_wall},
+          "peak_bytes": {f"replay_assoc[{impl}]": pk
+                         for impl, (_, _, pk) in assoc.items()}
+          | {"replay_packed[assoc]": facade_peak},
+          "fsm_at_same_lanes": fsm_at, "device_busy": busy,
+          "segscan_launches": seg_launches,
+          "fsm_launches_on_assoc_path": fsm_in_assoc,
+          "fields_diverged": diverged, "segscan_kernel": seg_timing,
+          "nvidia_smi": smi})
+    check(not any(diverged.values()),
+          f"assoc routes differ from the FSM route: {diverged}")
+    check(seg_timing["equal"], "scan kernel disagrees with plain at the "
+          "path's operands")
+
+    # 7. the assoc lanes routes on the phase-4 mix, launches counted
+    AC.affine_segscan.launches = 0
+    t0 = time.perf_counter()
+    lanes_pk = P.pack_lanes(mixed, caps=caps)
+    lanes_final = A.replay_assoc_lanes(lanes_pk, impl="segscan",
+                                       device="cuda")
+    lanes_wall = time.perf_counter() - t0
+    stream_assoc, stream_assoc_wall = phase_stream(
+        torch, S, replay_stream, mixed, bucket=True, scan_mode="assoc")
+    hist_assoc, hist_assoc_wall = phase_stream(
+        torch, S, replay_stream, mixed, batch_size=1024, scan_mode="assoc")
+    seg_launches_lanes = AC.affine_segscan.launches
+    got_lanes = [unpack.state_row_to_snapshot(lanes_final, i,
+                                              lanes_pk.epoch_s)
+                 for i in range(len(mixed))]
+    got_sa = stream_snapshots(stream_assoc, len(mixed), unpack)
+    got_ha = stream_snapshots(hist_assoc, len(mixed), unpack)
+    mism_lanes = sum(g != w for g, w in zip(got_lanes, got))
+    mism_sa = sum(g != w for g, w in zip(got_sa, got))
+    mism_ha = sum(g != w for g, w in zip(got_ha, got))
+    emit({"phase": "assoc_lanes", "histories": len(mixed),
+          "lanes": lanes_pk.lanes, "scan_len": lanes_pk.scan_len,
+          "replay_assoc_lanes_segscan_wall_s": lanes_wall,
+          "stream_assoc_wall_s": stream_assoc_wall,
+          "stream_assoc_batches": len(stream_assoc),
+          "unbucketed_assoc": {"batch_size": 1024,
+                               "batches": len(hist_assoc),
+                               "wall_s": hist_assoc_wall},
+          "segscan_launches": seg_launches_lanes,
+          "snapshot_mismatches": {"replay_assoc_lanes": mism_lanes,
+                                  "replay_stream[assoc]": mism_sa,
+                                  "replay_stream[assoc, unbucketed]":
+                                  mism_ha}})
+    check(not (mism_lanes or mism_sa or mism_ha or None in got_sa
+               or None in got_ha),
+          f"assoc snapshots differ from the FSM route: {mism_lanes} "
+          f"lanes, {mism_sa} bucketed, {mism_ha} unbucketed")
+
+    # 8. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
+    seg_total = seg_launches + seg_launches_lanes
+    check(seg_total > 0, "the assoc path launched no scan kernel")
     t32 = timing["int32"]
     kernels = [{
         "name": "replay_fsm", "route": "cuda",
@@ -444,6 +775,16 @@ def main() -> int:
         "plain_ms_int16": timing["int16"]["plain_ms"],
         "bound_ms_int16": timing["int16"]["bound_ms"],
         "shape": f"T={caps.max_events} B={n} R_pad={m['rm'].rows_padded}",
+    }, {
+        "name": "affine_segscan", "route": "cuda",
+        "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",
+        "replaces": "cadence_tpu/ops/replay_pallas.py:1068",
+        "launches": seg_total,
+        "max_abs_err": max(seg_rand_err, seg_timing["max_abs_err"]),
+        "ms": seg_timing["ms"], "plain_ms": seg_timing["plain_ms"],
+        "bound_ms": seg_timing["bound_ms"],
+        "bound_by": seg_timing["bound_by"], "library_ms": None,
+        "shape": seg_timing["shape"],
     }]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})

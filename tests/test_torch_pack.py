@@ -199,11 +199,14 @@ def test_schema_constants_match_kernel_source():
 
 
 def test_import_hygiene():
-    """Importing the port loads neither jax nor the reference package."""
+    """Importing the port, the parallel-in-time replay and its scan
+    kernel's wrapper included, loads neither jax nor the reference
+    package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
         "import cadence_tpu_torch.ops.dispatch, cadence_tpu_torch.ops.unpack\n"
+        "import cadence_tpu_torch.ops.assoc, cadence_tpu_torch.ops.assoc_cuda\n"
         "import cadence_tpu_torch.testing.workloads\n"
         "import cadence_tpu_torch.core.history_factory\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

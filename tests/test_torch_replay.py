@@ -345,7 +345,7 @@ def test_replay_packed_rejects_unknown_scan_mode():
     pk = P.pack_histories(_retry(W, 1, 20), caps=RETRY_CAPS)
     with pytest.raises(ValueError, match="scan_mode"):
         replay_packed(pk, scan_mode="asoc", device="cpu")
-    # every known mode runs the sequential kernel
+    # every known mode gives the sequential kernel's state
     a = replay_packed(pk, scan_mode="assoc", device="cpu")
     assert_state_equal(a, replay_packed(pk, scan_mode="scan", device="cpu"))
 
