@@ -37,8 +37,13 @@ _SIGNATURES = {
     "replay_fsm": {
         "cadence_replay_fsm": (ctypes.c_int, [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]),
+        "cadence_replay_fsm_plan": (ctypes.c_int, [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]),
         "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },

@@ -12,7 +12,8 @@ package's ``ops/dispatch.py``:
 
 * **ragged lane packing** (``lane_pack=True``): several whole histories
   share each lane (``ops/pack.pack_lanes``) and the replay takes the
-  kernel's packed route, flushing finished histories between time blocks;
+  kernel's packed route, one launch per batch that flushes each finished
+  history at its own last step;
 * **depth bucketing** (``replay_stream(bucket=True)``): histories sort
   into geometric depth classes first, so a few deep stragglers don't
   stretch every lane.
@@ -127,8 +128,9 @@ class DeviceDispatcher:
     device; 2 is classic double buffering. ``narrow`` streams events as
     the int16 narrow stream where a batch allows it (half the bytes of
     both the copy and the kernel's event stream; bit-identical result).
-    ``tb`` is the packed route's time block: lane packing aligns segments
-    to it. ``scan_mode="assoc"`` sends affine batches to the
+    ``tb``: lane packing aligns segments to it (``pack_lanes(seg_align=
+    tb)``, as the reference dispatcher packs); the packed route itself
+    needs no alignment. ``scan_mode="assoc"`` sends affine batches to the
     parallel-in-time replay (module docstring). Results come back in
     submission order from :meth:`results`."""
 
@@ -340,7 +342,7 @@ class DeviceDispatcher:
                 kw = dict(init=item.init, reset_row=packed.reset_rows())
             _, final = replay_scan_packed(
                 item.state0, out0, item.events, packed.seg_end,
-                packed.out_row, self.caps, tb=self.tb, base=item.base,
+                packed.out_row, self.caps, base=item.base,
                 wide_cols=item.wide_cols, **kw)
         if final.batch > item.rows:
             final = final.map(lambda x: x[: item.rows])

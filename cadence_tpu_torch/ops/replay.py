@@ -156,13 +156,11 @@ def replay_packed_lanes(
     replaying the full history from scratch.
 
     ``scan_mode="assoc"`` takes ``replay_assoc_lanes`` when every present
-    type is provably affine (any ``seg_align``); the lane-packed assoc
-    path has no hybrid chunker, so a batch with a nonaffine type takes
-    the sequential packed route below, as under ``"auto"``/``"scan"``.
-
-    The sequential kernel advances one ``packed.seg_align``-step block
-    per launch, and segment flushes happen between blocks, so pack with
-    ``seg_align`` at the time block wanted (16 in the dispatcher)."""
+    type is provably affine; the lane-packed assoc path has no hybrid
+    chunker, so a batch with a nonaffine type takes the sequential packed
+    route below, as under ``"auto"``/``"scan"``. Either route takes any
+    ``seg_align``: the sequential kernel replays the whole pack in one
+    launch and flushes each segment at its own end step."""
     check_scan_mode(scan_mode)
     dev = S.resolve_device(device)
     if scan_mode == "assoc":
@@ -183,7 +181,7 @@ def replay_packed_lanes(
     events, base, wide = events_to_device(packed.teb(), dev, narrow)
     _, out = replay_scan_packed(
         state0, out0, events, packed.seg_end, packed.out_row, caps,
-        tb=packed.seg_align, base=base, wide_cols=wide, **kw)
+        base=base, wide_cols=wide, **kw)
     return S.state_to_numpy(out)
 
 

@@ -8,12 +8,16 @@ batch minor. Events arrive field-major, ``[T, P, B]``: int32 with P = EV_N,
 or the int16 narrow stream of ``narrow_events_teb`` with P = EV_N plus one
 column per wide column.
 
-``replay_rows`` is the kernel wrapper. On a CUDA tensor it launches
-``csrc/replay_fsm.cu`` (one thread per history lane, its state column
-held in shared memory across the time loop) and counts the launch in
-``replay_rows.launches``; on a CPU tensor it runs ``replay_rows_plain``,
-the transition table written as masked ``torch.where`` row updates that
-follow the reference kernel step by step. Both compute the reference's
+``replay_rows`` and ``replay_rows_packed`` are the kernel wrappers. On a
+CUDA tensor they launch ``csrc/replay_fsm.cu`` (one thread per history
+lane, its state column held on chip across the time loop, the event
+tiles staged through shared memory) and count the launch in
+``replay_rows.launches``; on a CPU tensor they run ``replay_rows_plain``
+and ``replay_rows_packed_plain``, the transition table written as masked
+``torch.where`` row updates that follow the reference kernel step by
+step. ``replay_rows_packed`` is the lane-packed route in one launch: each
+lane flushes its state into an output row and resets at its own segment
+ends, on any step. All compute the reference's
 ``stateBuilder.applyEvents`` semantics bit for bit.
 """
 
@@ -462,6 +466,40 @@ def _step_plain(st: torch.Tensor, f: torch.Tensor, rm: RowMap,
             clear(tbl, onehot(cap, *t_close))
 
 
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _check_rows(rows: torch.Tensor, rm: RowMap, b: int) -> None:
+    if rows.shape != (rm.rows_padded, b):
+        raise ValueError(
+            f"rows {tuple(rows.shape)} != ({rm.rows_padded}, {b})")
+
+
+def _plain_setup(events, rows, caps, base, wide_cols):
+    """What the plain step loop needs: (rm, fields-of-step function,
+    arange table, a fresh int32 copy of ``rows``)."""
+    _check_stream(events, base, wide_cols)
+    rm = RowMap(caps)
+    _check_rows(rows, rm, events.shape[2])
+    wide_cols = tuple(wide_cols)
+    phys, _ = _phys_map(wide_cols)
+    base_t = torch.tensor(_base_list(base), dtype=torch.int32,
+                          device=events.device)
+    sizes = {caps.max_version_items, caps.max_activities, caps.max_timers,
+             caps.max_children, caps.max_request_cancels,
+             caps.max_signals_ext}
+    ar = {n: torch.arange(n, dtype=torch.int32, device=rows.device)[:, None]
+          for n in sizes}
+
+    def fields(t):
+        return _fields_at(events, t, base_t, phys, wide_cols)
+
+    return rm, fields, ar, rows.to(torch.int32).clone()
+
+
 def replay_rows_plain(events: torch.Tensor, rows: torch.Tensor,
                       caps: S.Capacities, base=None,
                       wide_cols: Sequence[int] = (), t0: int = 0,
@@ -472,27 +510,78 @@ def replay_rows_plain(events: torch.Tensor, rows: torch.Tensor,
     ``events`` is int32 (P = EV_N) or the int16 narrow stream with its
     ``base`` [EV_N] and ``wide_cols``. The reference for the CUDA kernel:
     same inputs, same rows, bit for bit."""
-    _check_stream(events, base, wide_cols)
-    rm = RowMap(caps)
-    if rows.shape != (rm.rows_padded, events.shape[2]):
-        raise ValueError(
-            f"rows {tuple(rows.shape)} != ({rm.rows_padded}, "
-            f"{events.shape[2]})")
+    rm, fields, ar, st = _plain_setup(events, rows, caps, base, wide_cols)
     t1 = events.shape[0] if t1 is None else t1
-    wide_cols = tuple(wide_cols)
-    phys, _ = _phys_map(wide_cols)
-    base_t = torch.tensor(_base_list(base), dtype=torch.int32,
-                          device=events.device)
-    sizes = {caps.max_version_items, caps.max_activities, caps.max_timers,
-             caps.max_children, caps.max_request_cancels,
-             caps.max_signals_ext}
-    ar = {n: torch.arange(n, dtype=torch.int32, device=rows.device)[:, None]
-          for n in sizes}
-    st = rows.to(torch.int32).clone()
     for t in range(t0, t1):
-        _step_plain(st, _fields_at(events, t, base_t, phys, wide_cols), rm,
-                    ar)
+        _step_plain(st, fields(t), rm, ar)
     return st
+
+
+def segment_list(seg_end, out_row, reset_row=None):
+    """The packed route's segment ends in the kernel's compact form, from
+    the [L, T] planes of a lane pack: ``ptr`` [L + 1] int32 (lane l's
+    entries are ``ends[ptr[l]:ptr[l + 1]]``) and ``ends`` [n, 3] int32
+    rows (end step, output column, reset column), by lane and then by
+    step. Without ``reset_row`` every reset column is 0."""
+    seg = _host(seg_end).astype(bool)
+    lanes, steps = np.nonzero(seg)
+    ptr = np.zeros(seg.shape[0] + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(lanes, minlength=seg.shape[0]))
+    reset = (np.zeros(len(lanes), np.int64) if reset_row is None
+             else _host(reset_row)[lanes, steps])
+    ends = np.stack([steps, _host(out_row)[lanes, steps], reset], axis=1)
+    return ptr, np.ascontiguousarray(ends, dtype=np.int32)
+
+
+def replay_rows_packed_plain(events: torch.Tensor, rows: torch.Tensor,
+                             caps: S.Capacities, seg_ptr, seg_ends,
+                             out_rows: torch.Tensor,
+                             init_rows: torch.Tensor, base=None,
+                             wide_cols: Sequence[int] = ()):
+    """The packed route with plain PyTorch ops: replay every step of
+    ``events`` [T, P, L] onto the lane rows ``rows`` [R_pad, L]; at a
+    lane's segment end (``seg_ptr`` / ``seg_ends`` from
+    ``segment_list``) write its column to column ``output`` of
+    ``out_rows`` [R_pad, n_out], then reload it from column ``reset`` of
+    ``init_rows`` [R_pad, n_init]. A column out of range writes nothing.
+    Returns new (rows, out_rows): the reference for the kernel's packed
+    route, bit for bit."""
+    rm, fields, ar, st = _plain_setup(events, rows, caps, base, wide_cols)
+    T, _, L = events.shape
+    ptr = _host(seg_ptr).astype(np.int64)
+    ends = _host(seg_ends).astype(np.int64).reshape(-1, 3)
+    if ptr.shape != (L + 1,) or ptr[-1] != len(ends):
+        raise ValueError(
+            f"segment list ptr {ptr.shape} does not index {len(ends)} "
+            f"ends over {L} lanes")
+    for name, m in (("out_rows", out_rows), ("init_rows", init_rows)):
+        if m.dim() != 2 or m.shape[0] != rm.rows_padded:
+            raise ValueError(f"{name} must be [{rm.rows_padded}, n]")
+    n_out, n_init = out_rows.shape[1], init_rows.shape[1]
+    lane = np.repeat(np.arange(L), np.diff(ptr))
+    dev = rows.device
+
+    def idx(a):
+        return torch.from_numpy(a).to(dev)
+
+    # per end step: (flushed lanes, their columns, reset lanes, columns)
+    flushes = {}
+    for t in np.unique(ends[:, 0]):
+        sel = ends[:, 0] == t
+        ln, oc, rc = lane[sel], ends[sel, 1], ends[sel, 2]
+        fo = (oc >= 0) & (oc < n_out)
+        fr = (rc >= 0) & (rc < n_init)
+        flushes[int(t)] = (idx(ln[fo]), idx(oc[fo]), idx(ln[fr]),
+                           idx(rc[fr]))
+    out = out_rows.to(torch.int32).clone()
+    init = init_rows.to(torch.int32)
+    for t in range(T):
+        _step_plain(st, fields(t), rm, ar)
+        if t in flushes:
+            ln_o, oc, ln_r, rc = flushes[t]
+            out[:, oc] = st[:, ln_o]
+            st[:, ln_r] = init[:, rc]
+    return st, out
 
 
 # --------------------------------------------------------------------------
@@ -504,16 +593,33 @@ _N_PARAMS = 22 + 2 * S.EV_N
 
 # shared memory a block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232448
+# stages of each warp's event ring (csrc/replay_fsm.cu, STAGES)
+_RING_STAGES = 3
+# blocks a launch should make where the batch allows: about two per SM of
+# an H100 (132 SMs)
+_MIN_BLOCKS = 256
 
 
-def lanes_per_block(rows_padded: int) -> int:
+def lanes_per_block(rows_padded: int, batch: Optional[int] = None) -> int:
     """History lanes (threads) per block: the widest of 128/64/32 whose
-    [R_pad, lanes] int32 state block fits in shared memory."""
-    for lanes in (128, 64, 32):
-        if rows_padded * 4 * lanes <= _SMEM_LIMIT:
+    block fits in shared memory with one step a ring stage (each warp's
+    state tile, the rows past the exec rows and the vh_len row, which the
+    kernel keeps in registers, and its event ring of at most 64 bytes a
+    lane-step, int32 or int16) and, given the ``batch`` width, still
+    makes ``_MIN_BLOCKS`` blocks; the narrowest that fits when none does,
+    so that a narrow batch spreads over the SMs."""
+    fits = [lanes for lanes in (128, 64, 32)
+            if lanes * ((rows_padded - S.X_N - 1) * 4
+                        + _RING_STAGES * 4 * S.EV_N) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"{rows_padded} state rows do not fit shared memory at 32 lanes")
+    if batch is None:
+        return fits[0]
+    for lanes in fits:
+        if -(-batch // lanes) >= _MIN_BLOCKS:
             return lanes
-    raise ValueError(
-        f"{rows_padded} state rows do not fit shared memory at 32 lanes")
+    return fits[-1]
 
 
 def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
@@ -525,7 +631,7 @@ def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
     for c in wide_cols:
         wide_mask |= 1 << int(c)
     hp = [
-        T, P, B, rm.rows_padded, t0, t1, lanes_per_block(rm.rows_padded),
+        T, P, B, rm.rows_padded, t0, t1, lanes_per_block(rm.rows_padded, B),
         rm.exec0, rm.vh0, rm.vhlen, rm.act0, rm.tim0, rm.chd0, rm.rc0,
         rm.sg0,
         caps.max_activities, caps.max_timers, caps.max_children,
@@ -537,6 +643,74 @@ def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
     return np.asarray(hp, dtype=np.int32)
 
 
+def _int32_matrix(name: str, m: torch.Tensor, dev, rows: int,
+                  cols: Optional[int] = None) -> None:
+    if (m.dtype != torch.int32 or m.device != dev or m.dim() != 2
+            or m.shape[0] != rows or cols not in (None, m.shape[1])
+            or not m.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous int32 [{rows}, {cols or 'n'}] "
+            f"tensor on {dev}, got {m.dtype} {tuple(m.shape)} on {m.device}")
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch(events, rows, out, caps, base, wide_cols, t0, t1,
+            seg=None) -> None:
+    """Check the operands and launch cadence_replay_fsm on the current
+    stream; ``seg``: the packed route's (ptr, ends, out_rows, init_rows)
+    device tensors, or None."""
+    if events.device.type != "cuda" or rows.device != events.device:
+        raise ValueError(
+            f"events on {events.device} and rows on {rows.device}: the "
+            "kernel needs both on one CUDA device")
+    _check_stream(events, base, wide_cols)
+    rm = RowMap(caps)
+    T, _, B = events.shape
+    _int32_matrix("rows", rows, events.device, rm.rows_padded, B)
+    _int32_matrix("out", out, events.device, rm.rows_padded, B)
+    if not (0 <= t0 <= t1 <= T):
+        raise ValueError(f"step range [{t0}, {t1}) outside T={T}")
+    if not events.is_contiguous():
+        raise ValueError("events must be contiguous")
+    seg_args = [None, None, None, 0, None, 0]
+    if seg is not None:
+        ptr, ends, out_rows, init_rows = seg
+        for name, v, shape in (("seg_ptr", ptr, (B + 1,)),
+                               ("seg_ends", ends, (ends.shape[0], 3))):
+            if (v.dtype != torch.int32 or v.device != events.device
+                    or tuple(v.shape) != shape or not v.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be a contiguous int32 {shape} tensor on "
+                    f"{events.device}")
+        _int32_matrix("out_rows", out_rows, events.device, rm.rows_padded)
+        _int32_matrix("init_rows", init_rows, events.device,
+                      rm.rows_padded)
+        seg_args = [ptr.data_ptr(), ends.data_ptr() or None,
+                    out_rows.data_ptr() or None, out_rows.shape[1],
+                    init_rows.data_ptr() or None, init_rows.shape[1]]
+    if B == 0:
+        return
+    from . import _build
+
+    lib = _build.load("replay_fsm")
+    hp = _kernel_params(events, rm, t0, t1, base, wide_cols)
+    err = lib.cadence_replay_fsm(
+        events.data_ptr(), int(events.dtype == torch.int16),
+        rows.data_ptr(), out.data_ptr(), *seg_args,
+        hp.ctypes.data_as(ctypes.c_void_p), len(hp),
+        torch.cuda.current_stream(events.device).cuda_stream,
+        _device_index(events.device),
+    )
+    if err:
+        raise RuntimeError(
+            "replay_fsm kernel launch failed: "
+            + lib.cadence_cuda_error_string(err).decode())
+    replay_rows.launches += 1
+
+
 def replay_rows(events: torch.Tensor, rows: torch.Tensor,
                 caps: S.Capacities, base=None,
                 wide_cols: Sequence[int] = (), t0: int = 0,
@@ -544,7 +718,8 @@ def replay_rows(events: torch.Tensor, rows: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Replay steps ``[t0, t1)`` of ``events`` [T, P, B] onto ``rows``
     [R_pad, B] int32; returns the new rows (in ``out`` when given, which
-    may be ``rows`` itself).
+    may be ``rows`` itself). Any B and any window, one step or none
+    included.
 
     CUDA tensors launch the FSM kernel on the current stream (counted in
     ``replay_rows.launches``); CPU tensors run ``replay_rows_plain``."""
@@ -555,49 +730,68 @@ def replay_rows(events: torch.Tensor, rows: torch.Tensor,
             return res
         out.copy_(res)
         return out
-    if events.device.type != "cuda" or rows.device != events.device:
-        raise ValueError(
-            f"events on {events.device} and rows on {rows.device}: the "
-            "kernel needs both on one CUDA device")
-    _check_stream(events, base, wide_cols)
-    rm = RowMap(caps)
-    B = events.shape[2]
-    if rows.dtype != torch.int32 or rows.shape != (rm.rows_padded, B):
-        raise ValueError(
-            f"rows must be int32 ({rm.rows_padded}, {B}), got "
-            f"{rows.dtype} {tuple(rows.shape)}")
-    if not (0 <= t0 <= t1 <= events.shape[0]):
-        raise ValueError(f"step range [{t0}, {t1}) outside T={events.shape[0]}")
-    if not (events.is_contiguous() and rows.is_contiguous()):
-        raise ValueError("events and rows must be contiguous")
     if out is None:
         out = torch.empty_like(rows)
-    elif (out.shape != rows.shape or out.dtype != torch.int32
-          or out.device != rows.device or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous int32 twin of rows")
-    if B == 0:
-        return out
-    from . import _build
-
-    lib = _build.load("replay_fsm")
-    hp = _kernel_params(events, rm, t0, t1, base, wide_cols)
-    err = lib.cadence_replay_fsm(
-        events.data_ptr(), int(events.dtype == torch.int16),
-        rows.data_ptr(), out.data_ptr(),
-        hp.ctypes.data_as(ctypes.c_void_p), len(hp),
-        torch.cuda.current_stream(events.device).cuda_stream,
-        events.device.index if events.device.index is not None
-        else torch.cuda.current_device(),
-    )
-    if err:
-        raise RuntimeError(
-            "replay_fsm kernel launch failed: "
-            + lib.cadence_cuda_error_string(err).decode())
-    replay_rows.launches += 1
+    _launch(events, rows, out, caps, base, wide_cols, t0, t1)
     return out
 
 
 replay_rows.launches = 0
+
+
+def replay_rows_packed(events: torch.Tensor, rows: torch.Tensor,
+                       caps: S.Capacities, seg_ptr: torch.Tensor,
+                       seg_ends: torch.Tensor, out_rows: torch.Tensor,
+                       init_rows: torch.Tensor, base=None,
+                       wide_cols: Sequence[int] = (),
+                       out: Optional[torch.Tensor] = None):
+    """The packed route in one launch: replay every step of ``events``
+    [T, P, L] onto the lane rows ``rows`` [R_pad, L], flushing each lane
+    into ``out_rows`` and resetting it from ``init_rows`` at its segment
+    ends (``seg_ptr`` / ``seg_ends`` from ``segment_list``, on the same
+    device), as ``replay_rows_packed_plain`` does. Returns (rows,
+    out_rows): the final lane rows (in ``out`` when given, which may be
+    ``rows``) and ``out_rows``, updated in place.
+
+    CUDA tensors launch the FSM kernel once (counted in
+    ``replay_rows.launches``); CPU tensors run the plain version."""
+    if events.device.type == "cpu" and rows.device.type == "cpu":
+        res, res_out = replay_rows_packed_plain(
+            events, rows, caps, seg_ptr, seg_ends, out_rows, init_rows,
+            base, wide_cols)
+        out_rows.copy_(res_out)
+        if out is None:
+            return res, out_rows
+        out.copy_(res)
+        return out, out_rows
+    if out is None:
+        out = torch.empty_like(rows)
+    _launch(events, rows, out, caps, base, wide_cols, 0, events.shape[0],
+            seg=(seg_ptr, seg_ends, out_rows, init_rows))
+    return out, out_rows
+
+
+def kernel_plan(events: torch.Tensor, caps: S.Capacities, base=None,
+                wide_cols: Sequence[int] = ()) -> dict:
+    """The launch geometry the kernel takes for ``events`` on its CUDA
+    device: lanes per block, steps per ring stage, bytes per copy
+    request, shared memory per block and resident blocks per SM."""
+    from . import _build
+
+    lib = _build.load("replay_fsm")
+    rm = RowMap(caps)
+    hp = _kernel_params(events, rm, 0, events.shape[0], base, wide_cols)
+    res = np.zeros(5, np.int32)
+    err = lib.cadence_replay_fsm_plan(
+        events.data_ptr(), int(events.dtype == torch.int16),
+        hp.ctypes.data_as(ctypes.c_void_p), len(hp),
+        _device_index(events.device), res.ctypes.data_as(ctypes.c_void_p))
+    if err:
+        raise RuntimeError(
+            "replay_fsm plan failed: "
+            + lib.cadence_cuda_error_string(err).decode())
+    return dict(zip(("lanes_per_block", "steps_per_stage", "request_bytes",
+                     "smem_bytes", "blocks_per_sm"), res.tolist()))
 
 
 # --------------------------------------------------------------------------
@@ -618,12 +812,6 @@ def replay_scan_teb(state: S.StateTensors, events_teb: torch.Tensor,
     return rows_to_state(rows, rm)
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def replay_scan_packed(
     state: S.StateTensors,
     out0: S.StateTensors,
@@ -631,7 +819,6 @@ def replay_scan_packed(
     seg_end,
     out_row,
     caps: S.Capacities,
-    tb: int = 16,
     base=None,
     wide_cols: Sequence[int] = (),
     init: Optional[S.StateTensors] = None,
@@ -639,57 +826,32 @@ def replay_scan_packed(
 ):
     """Lane-packed replay: several whole histories back to back per lane.
 
-    The kernel advances one ``tb``-step block; then torch ops scatter the
-    lanes whose segment ended in that block into their output rows and
-    reset them to the next segment's initial carry (``init`` row
-    ``reset_row``, or empty). Segment ends must fall on block-final
-    steps: pack with ``pack_lanes(seg_align=tb)``.
+    One kernel launch replays every step; at a lane's segment end it
+    writes the lane's state into the history's output row and resets the
+    lane to the next segment's initial carry (``init`` row ``reset_row``,
+    or empty). Segment ends may fall on any step: the packer's
+    ``seg_align`` is free.
 
     ``state``: [L] torch lane carry; ``out0``: [n_out] torch empty_state
     buffer; ``events_teb``: [T, P, L] on the same device; ``seg_end`` /
-    ``out_row`` / ``reset_row``: [L, T] (host arrays or tensors).
-    Returns (final_lane_state, out)."""
-    T, _, L = events_teb.shape
-    if T % tb:
-        raise ValueError(f"packed scan length {T} not a multiple of tb={tb}")
-    seg_np = _host(seg_end).astype(bool)
-    if seg_np.reshape(L, T // tb, tb)[:, :, : tb - 1].any():
-        raise ValueError(
-            "segment boundaries must be tb-aligned for the packed kernel "
-            "route — pack with pack_lanes(seg_align=tb)")
+    ``out_row`` / ``reset_row``: [L, T] (host arrays or tensors);
+    ``reset_row`` indexes ``init`` and its sentinel ``n_init`` the
+    appended empty row. Returns (final_lane_state, out)."""
     dev = events_teb.device
     rm = RowMap(caps)
-    nb = T // tb
-    n_out = out0.exec_info.shape[0]
-    seg_b = np.ascontiguousarray(seg_np[:, tb - 1 :: tb].T)      # [nb, L]
-    row_b = _host(out_row)[:, tb - 1 :: tb].T
-    rows = state_to_rows(state, rm)
-    # one sentinel column past the end absorbs the non-flushed lanes'
-    # scatter (torch index_put has no "drop" mode for out-of-range)
-    out_rows = torch.cat(
-        [state_to_rows(out0, rm),
-         torch.zeros((rm.rows_padded, 1), dtype=torch.int32, device=dev)],
-        dim=1)
     empty_col = state_to_rows(
         S.state_from_numpy(S.empty_state(1, caps), dev), rm)
     if init is None:
         init_rows = empty_col
-        reset_b = np.zeros((nb, L), np.int64)
+        reset_row = None
     else:
         if reset_row is None:
             raise ValueError("init requires reset_row")
         init_rows = torch.cat([state_to_rows(init, rm), empty_col], dim=1)
-        reset_b = _host(reset_row)[:, tb - 1 :: tb].T
-    flush = seg_b.any(axis=1)
-    seg_d = torch.from_numpy(seg_b).to(dev)
-    idx_d = torch.from_numpy(
-        np.where(seg_b, row_b, n_out).astype(np.int64)).to(dev)
-    reset_d = torch.from_numpy(np.asarray(reset_b, np.int64)).to(dev)
-    for k in range(nb):
-        rows = replay_rows(events_teb, rows, caps, base, wide_cols,
-                           t0=k * tb, t1=(k + 1) * tb, out=rows)
-        if flush[k]:
-            out_rows[:, idx_d[k]] = rows
-            rows = torch.where(seg_d[k][None, :],
-                               init_rows[:, reset_d[k]], rows)
-    return rows_to_state(rows, rm), rows_to_state(out_rows[:, :n_out], rm)
+    ptr, ends = segment_list(seg_end, out_row, reset_row)
+    rows = state_to_rows(state, rm)
+    rows, out_rows = replay_rows_packed(
+        events_teb, rows, caps, torch.from_numpy(ptr).to(dev),
+        torch.from_numpy(ends).to(dev), state_to_rows(out0, rm), init_rows,
+        base, wide_cols, out=rows)
+    return rows_to_state(rows, rm), rows_to_state(out_rows, rm)

@@ -11,11 +11,17 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
 1. device: the card (``nvidia-smi`` name and power limit), kernel build;
 2. kernel against plain on seeded random events (every event type,
    slots from -1 to past capacity, version changes, padding), at the
-   default and the retry_deep capacities, int32 and int16 streams;
+   default and the retry_deep capacities, int32 and int16 streams; ragged
+   batch widths (2,045 and 2,046 lanes: narrower copy requests), one-step
+   and empty windows, and the fused packed route (segment ends at any
+   step, permuted output columns, resets into init columns);
 3. ``replay_packed`` on 65,536 tiled retry_deep histories, int32 and
-   narrow, with kernel timing (CUDA events) against the memory bound;
+   narrow, with kernel timing (CUDA events) against the memory bound,
+   and the kernel's launch geometry;
 4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix,
-   every snapshot against the plain route on the CPU;
+   every snapshot against the plain route on the CPU, its FSM launches
+   (one per packed batch), its device-busy share (torch.profiler) and
+   the packed route's time per batch against its bound;
 5. ``segscan_vs_plain`` (run right after phase 2, outside the counted
    windows): the segmented affine-scan kernel against its plain version
    on seeded random streams (L = 4,096, C = 24, T = 1,024 and 1,000;
@@ -23,7 +29,8 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
 6. ``assoc_main_path``: the parallel-in-time replay of 16,384 tiled
    retry_deep histories, ``replay_assoc`` (both impls) and
    ``replay_packed(scan_mode="assoc")`` against the FSM route field by
-   field, with the scan kernel's time at the path's operands;
+   field, with the scan kernel's time at the path's operands and the FSM
+   kernel's time against its bound at the same lanes;
 7. ``assoc_lanes``: ``replay_assoc_lanes(impl="segscan")`` and
    ``replay_stream(scan_mode="assoc")``, bucketed and unbucketed, on the
    phase-4 mix, every snapshot against the FSM route's;
@@ -54,6 +61,10 @@ N_HISTORIES = 512 * 128
 DEPTH = 1000
 PLAIN_CHECK_LANES = 4096
 RANDOM_B, RANDOM_T = 2048, 1024
+# phase 2: ragged widths, one-step windows and the packed route
+RAGGED_BS, RAGGED_T = (2045, 2046), 256
+WINDOWS = ((0, 1), (100, 101), (255, 256), (5, 5))
+PACKED_L, PACKED_T, PACKED_N_INIT = 2048, 256, 64
 # phase 4: the mixed_depth shape
 N_SHALLOW, N_DEEP = 1800, 200
 # phase 5: random affine streams for the scan kernel
@@ -151,6 +162,19 @@ def bound(event_bytes: int, rows_padded: int, lanes: int,
         "bytes" if t_bytes >= t_ops else "operations")
 
 
+def packed_bound(event_bytes: int, rows_padded: int, lanes: int,
+                 n_out: int, n_init: int, n_seg: int, valid_events: int):
+    """Least time for the packed route: the events, the lane rows read
+    and written, the output columns written and the init columns read
+    once each, and the segment list, against the FSM's integer work."""
+    nbytes = (event_bytes + 4 * rows_padded * (2 * lanes + n_out + n_init)
+              + 4 * (lanes + 1) + 12 * n_seg)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = valid_events * FSM_OPS_PER_EVENT / PEAK_INT32_OPS_S * 1e3
+    return nbytes, max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
 def random_events(S, E, caps, t, b, seed, pad_frac=0.1):
     """Seeded random [T, EV_N, B] int32 events over every event type,
     slots from -1 to past the largest table, frequent version changes,
@@ -200,7 +224,7 @@ def phase_device(torch, _build):
     return smi
 
 
-def phase_kernel_vs_plain(torch, S, E, RC):
+def phase_kernel_vs_plain(torch, np, S, E, RC):
     """The kernel against its plain version on random events."""
     b, t = RANDOM_B, RANDOM_T
     caps_set = {"default": S.Capacities(),
@@ -229,10 +253,103 @@ def phase_kernel_vs_plain(torch, S, E, RC):
                           rm.rows_padded, "B": b, "T": t,
                           "max_abs_err": err,
                           "equal": bool(torch.equal(got, want))})
+    cases += ragged_and_window_cases(torch, S, E, RC)
+    cases += packed_cases(torch, np, S, E, RC)
     emit({"phase": "kernel_vs_plain", "cases": cases})
     bad = [c for c in cases if not c["equal"]]
     check(not bad, f"kernel disagrees with plain: {bad}")
     return max(c["max_abs_err"] for c in cases)
+
+
+def device_streams(torch, RC, ev):
+    """The int32 and the int16 narrow stream of host events on the card:
+    {name: (events, base, wide_cols)}."""
+    narrowed = RC.narrow_events_teb(ev)
+    check(narrowed is not None, "random events must narrow")
+    return {"int32": (torch.from_numpy(ev).cuda(), None, ()),
+            "int16": (torch.from_numpy(narrowed[0]).cuda(), narrowed[1],
+                      narrowed[2])}
+
+
+def compare(torch, got, want):
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    return err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def ragged_and_window_cases(torch, S, E, RC):
+    """The unpacked kernel at batch widths that are not a multiple of 8
+    (int16 at an odd width copies 2 bytes a request, int32 4) and over
+    one-step and empty windows, against plain."""
+    caps = S.Capacities(**RETRY_CAPS)
+    rm = RC.RowMap(caps)
+    cases = []
+    for bi, b in enumerate(RAGGED_BS):
+        ev = random_events(S, E, caps, RAGGED_T, b, seed=300 + bi)
+        rng = torch.Generator().manual_seed(300 + bi)
+        rows0 = torch.randint(-5, 6, (rm.rows_padded, b), generator=rng,
+                              dtype=torch.int32).cuda()
+        for stream, (evd, base, wide) in device_streams(torch, RC,
+                                                        ev).items():
+            windows = [(0, RAGGED_T)] + (list(WINDOWS) if bi == 0 else [])
+            for t0, t1 in windows:
+                got = RC.replay_rows(evd, rows0, caps, base, wide, t0, t1)
+                torch.cuda.synchronize()
+                want = RC.replay_rows_plain(evd, rows0, caps, base, wide,
+                                            t0, t1)
+                err, equal = compare(torch, [got], [want])
+                cases.append({"caps": "retry_deep", "stream": stream,
+                              "B": b, "T": RAGGED_T, "window": [t0, t1],
+                              "max_abs_err": err, "equal": equal})
+    return cases
+
+
+def random_segments(np, lanes, t, n_init, seed):
+    """Segment ends at random steps (every lane's last at t - 1), a
+    permuted output column per segment and a reset column into
+    ``n_init`` init columns, the empty sentinel ``n_init`` included."""
+    rng = np.random.default_rng(seed)
+    seg_end = rng.random((lanes, t)) < 0.05
+    seg_end[:, t - 1] = True
+    n_seg = int(seg_end.sum())
+    out_row = np.zeros((lanes, t), np.int32)
+    out_row[seg_end] = rng.permutation(n_seg)
+    reset_row = np.zeros((lanes, t), np.int32)
+    reset_row[seg_end] = rng.integers(0, n_init + 1, n_seg)
+    return seg_end, out_row, reset_row, n_seg
+
+
+def packed_cases(torch, np, S, E, RC):
+    """The fused packed route against ``replay_rows_packed_plain``."""
+    caps = S.Capacities(**RETRY_CAPS)
+    rm = RC.RowMap(caps)
+    L, T = PACKED_L, PACKED_T
+    ev = random_events(S, E, caps, T, L, seed=400)
+    seg_end, out_row, reset_row, n_seg = random_segments(
+        np, L, T, PACKED_N_INIT, seed=401)
+    ptr, ends = RC.segment_list(seg_end, out_row, reset_row)
+    ptr_d, ends_d = torch.from_numpy(ptr).cuda(), torch.from_numpy(
+        ends).cuda()
+    rng = torch.Generator().manual_seed(402)
+    rows0 = torch.randint(-5, 6, (rm.rows_padded, L), generator=rng,
+                          dtype=torch.int32).cuda()
+    init_rows = torch.randint(-5, 6, (rm.rows_padded, PACKED_N_INIT + 1),
+                              generator=rng, dtype=torch.int32).cuda()
+    out0 = torch.randint(-5, 6, (rm.rows_padded, n_seg + 2), generator=rng,
+                         dtype=torch.int32).cuda()
+    cases = []
+    for stream, (evd, base, wide) in device_streams(torch, RC, ev).items():
+        out_rows = out0.clone()
+        got = RC.replay_rows_packed(evd, rows0, caps, ptr_d, ends_d,
+                                    out_rows, init_rows, base, wide)
+        torch.cuda.synchronize()
+        want = RC.replay_rows_packed_plain(evd, rows0, caps, ptr_d, ends_d,
+                                           out0, init_rows, base, wide)
+        err, equal = compare(torch, got, want)
+        cases.append({"caps": "retry_deep", "stream": stream,
+                      "route": "packed", "L": L, "T": T, "segments": n_seg,
+                      "max_abs_err": err, "equal": equal})
+    return cases
 
 
 def retry_uniques(W, n, depth, seed):
@@ -342,7 +459,9 @@ def time_kernel(torch, S, RC, m):
         rec[stream] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=nbytes,
                            event_bytes=ev_bytes, h2d_s=h2d_s,
-                           achieved_GBps=nbytes / (ms * 1e-3) / 1e9)
+                           achieved_GBps=nbytes / (ms * 1e-3) / 1e9,
+                           share_of_bound=bound_ms / ms,
+                           plan=RC.kernel_plan(evd, caps, base, wide))
         del evd
         torch.cuda.empty_cache()
     return rec
@@ -469,8 +588,19 @@ def device_busy(torch, fn):
         by_name[e.name[:80]] = (by_name.get(e.name[:80], 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    # activities on several streams overlap: the busy time is the union
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
     return dict(device_activities=len(dev),
                 device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+                device_busy_ms=busy_us / 1e3,
+                busy_share=busy_us / 1e6 / wall if wall > 0 else None,
                 top_ms=dict(top), profiled_wall_s=wall)
 
 
@@ -556,19 +686,85 @@ def time_segscan(torch, S, A, AC, tiled):
 
 def time_fsm_at(torch, S, RC, tiled):
     """The FSM route at the assoc path's lanes: device-resident
-    ``replay_scan_teb`` wall and the kernel's CUDA-event time."""
+    ``replay_scan_teb`` wall, and the kernel's CUDA-event time against
+    its bound on the int32 and the int16 stream."""
     caps = tiled.caps
     rm = RC.RowMap(caps)
-    teb = S.host_tensor(tiled.teb()).cuda()
+    host = tiled.teb()
+    teb = S.host_tensor(host).cuda()
     state0 = S.state_from_numpy(S.empty_state(tiled.batch, caps), "cuda")
     _, wall, peak = timed_call(
         torch, lambda: RC.replay_scan_teb(state0, teb, caps))
     rows0 = RC.state_to_rows(state0, rm)
     out = torch.empty_like(rows0)
-    ms = cuda_ms(lambda: RC.replay_rows(teb, rows0, caps, out=out))
+    narrowed = RC.narrow_events_teb(host)
+    check(narrowed is not None, "retry_deep events must narrow")
+    rec = dict(replay_scan_teb_wall_s=wall, peak_bytes=peak)
+    for stream in ("int32", "int16"):
+        if stream == "int32":
+            evd, base, wide = teb, None, ()
+        else:
+            evd = torch.from_numpy(narrowed[0]).cuda()
+            base, wide = narrowed[1], narrowed[2]
+        ms = cuda_ms(lambda: RC.replay_rows(evd, rows0, caps, base, wide,
+                                            out=out))
+        nbytes, bound_ms, bound_by = bound(
+            evd.numel() * evd.element_size(), rm.rows_padded, tiled.batch,
+            int(tiled.lengths.sum()))
+        rec[stream] = dict(kernel_ms=ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes,
+                           share_of_bound=bound_ms / ms,
+                           plan=RC.kernel_plan(evd, caps, base, wide))
+        del evd
     del teb
     torch.cuda.empty_cache()
-    return dict(replay_scan_teb_wall_s=wall, kernel_ms=ms, peak_bytes=peak)
+    return rec
+
+
+def time_packed(torch, np, S, RC, caps, results):
+    """The packed route, one launch per batch, at each batch the bucketed
+    stream packed: kernel (CUDA-event mean) and plain ms against the
+    bound, int32 and int16."""
+    rm = RC.RowMap(caps)
+    out = []
+    for _, packed, _ in results:
+        ptr, ends = RC.segment_list(packed.seg_end, packed.out_row)
+        ptr_d, ends_d = (torch.from_numpy(ptr).cuda(),
+                         torch.from_numpy(ends).cuda())
+        rows0 = RC.state_to_rows(
+            S.state_from_numpy(packed.lane_state0(), "cuda"), rm)
+        n_out = packed.n_histories
+        out_rows = RC.state_to_rows(
+            S.state_from_numpy(S.empty_state(n_out, caps), "cuda"), rm)
+        init_rows = RC.state_to_rows(
+            S.state_from_numpy(S.empty_state(1, caps), "cuda"), rm)
+        rows_out = torch.empty_like(rows0)
+        valid = int((packed.events[:, :, S.EV_TYPE] >= 0).sum())
+        rec = dict(lanes=packed.lanes, T=packed.scan_len,
+                   histories=n_out, segments=len(ends))
+        for stream, (evd, base, wide) in device_streams(
+                torch, RC, packed.teb()).items():
+            def call():
+                return RC.replay_rows_packed(
+                    evd, rows0, caps, ptr_d, ends_d, out_rows, init_rows,
+                    base, wide, out=rows_out)
+            ms = cuda_ms(call)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            RC.replay_rows_packed_plain(evd, rows0, caps, ptr_d, ends_d,
+                                        out_rows, init_rows, base, wide)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            nbytes, bound_ms, bound_by = packed_bound(
+                evd.numel() * evd.element_size(), rm.rows_padded,
+                packed.lanes, n_out, 1, len(ends), valid)
+            rec[stream] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, bytes=nbytes,
+                               share_of_bound=bound_ms / ms,
+                               plan=RC.kernel_plan(evd, caps, base, wide))
+        out.append(rec)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -599,7 +795,7 @@ def main() -> int:
     smi = phase_device(torch, _build)
 
     # 2. kernel against plain on random events
-    rand_err = phase_kernel_vs_plain(torch, S, E, RC)
+    rand_err = phase_kernel_vs_plain(torch, np, S, E, RC)
 
     # 5. the scan kernel against plain on random streams, beside phase 2
     seg_rand_err = phase_segscan_vs_plain(torch, np, AC)
@@ -612,11 +808,14 @@ def main() -> int:
     # 3 + 4. the main path, launches counted from zero
     RC.replay_rows.launches = 0
     m = phase_main_path(torch, np, S, P, RC, replay_packed)
+    launches_packed = RC.replay_rows.launches
     stream_res, stream_wall = phase_stream(torch, S, replay_stream, mixed,
                                            bucket=True)
+    launches_stream = RC.replay_rows.launches - launches_packed
     hist_res, hist_wall = phase_stream(torch, S, replay_stream, mixed,
                                        batch_size=1024)
     launches = RC.replay_rows.launches
+    launches_hist = launches - launches_packed - launches_stream
 
     # checks and measurements, outside the counted window
     caps = m["caps"]
@@ -631,7 +830,7 @@ def main() -> int:
     emit({"phase": "main_path", "config": "retry_deep", "histories": n,
           "unique_histories": N_UNIQUE, "T": caps.max_events,
           "valid_events": m["valid"], "R_pad": m["rm"].rows_padded,
-          "lanes_per_block": RC.lanes_per_block(m["rm"].rows_padded),
+          "lanes_per_block": RC.lanes_per_block(m["rm"].rows_padded, n),
           "pack_s": m["pack_s"], "host_narrow_s": m["narrow_s"],
           "plain_check_lanes": k,
           "replay_packed_wall_s": m["wall"],
@@ -654,19 +853,29 @@ def main() -> int:
     got_hist = stream_snapshots(hist_res, len(mixed), unpack)
     mism = sum(g != w for g, w in zip(got, want))
     mism_hist = sum(g != w for g, w in zip(got_hist, want))
+    # one more (warm) bucketed stream under the profiler, then the packed
+    # route alone at each of its batches
+    busy = device_busy(torch, lambda: replay_stream(
+        mixed, caps=caps, bucket=True, device="cuda"))
+    packed_timing = time_packed(torch, np, S, RC, caps, stream_res)
     emit({"phase": "stream", "route": "replay_stream(bucket=True)",
           "histories": len(mixed), "shallow": N_SHALLOW, "deep": N_DEEP,
           "batches": len(stream_res), "gen_s": gen_s,
           "wall_s": stream_wall,
           "histories_per_s": len(mixed) / stream_wall,
           "host_pack_only_s": pack_only, "plain_cpu_wall_s": plain_wall,
+          "fsm_launches": launches_stream, "device_busy": busy,
+          "packed_route": packed_timing,
           "snapshot_mismatches": mism,
           "unbucketed": {"batch_size": 1024, "batches": len(hist_res),
-                         "wall_s": hist_wall,
+                         "wall_s": hist_wall, "fsm_launches": launches_hist,
                          "snapshot_mismatches": mism_hist}})
     check(not (mism or mism_hist or None in got or None in got_hist),
           f"stream snapshots differ from plain: {mism} bucketed, "
           f"{mism_hist} unbucketed")
+    check(launches_stream == len(stream_res),
+          f"the bucketed stream launched the FSM kernel {launches_stream} "
+          f"times for {len(stream_res)} packed batches")
 
     # 6. the assoc main path, launches counted from zero
     caps = m["caps"]
@@ -763,6 +972,7 @@ def main() -> int:
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
     t32 = timing["int32"]
+    deep = max(packed_timing, key=lambda r: r["T"] * r["lanes"])
     kernels = [{
         "name": "replay_fsm", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/replay_fsm.cu",
@@ -775,6 +985,14 @@ def main() -> int:
         "plain_ms_int16": timing["int16"]["plain_ms"],
         "bound_ms_int16": timing["int16"]["bound_ms"],
         "shape": f"T={caps.max_events} B={n} R_pad={m['rm'].rows_padded}",
+        "ms_16384": fsm_at["int32"]["kernel_ms"],
+        "bound_ms_16384": fsm_at["int32"]["bound_ms"],
+        "packed_ms": deep["int32"]["ms"],
+        "packed_bound_ms": deep["int32"]["bound_ms"],
+        "packed_shape": f"T={deep['T']} L={deep['lanes']}",
+        "launches_by_route": {"replay_packed": launches_packed,
+                              "replay_stream[bucket]": launches_stream,
+                              "replay_stream[unbucketed]": launches_hist},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

@@ -21,7 +21,10 @@ from cadence_tpu.ops import pack as JP
 from cadence_tpu.ops import schema as JS
 from cadence_tpu.ops.replay import replay_packed as j_replay_packed
 from cadence_tpu.ops.replay import replay_scan_jit
-from cadence_tpu.ops.replay_pallas import replay_scan_pallas_teb
+from cadence_tpu.ops.replay import replay_scan_packed as j_replay_scan_packed
+from cadence_tpu.ops.replay_pallas import (
+    replay_scan_pallas_packed, replay_scan_pallas_teb,
+)
 from cadence_tpu.testing import workloads as JW
 from cadence_tpu.testing.event_generator import HistoryFuzzer
 
@@ -401,11 +404,187 @@ def test_replay_packed_lanes_with_resume_matches_reference(seg_align):
 
 
 def test_replay_scan_packed_rejects_misaligned_segments():
-    lanes = P.pack_lanes(_retry(W, 3, 20), caps=RETRY_CAPS,
-                         target_lane_len=64, seg_align=1)
+    """Segment ends off any block edge are no longer rejected: a
+    ``seg_align=1`` pack through ``replay_scan_packed`` (one launch, a
+    flush at each segment's own end step) equals the reference's packed
+    route on the same pack."""
+    hs, jhs = _retry(W, 5, 20), _retry(JW, 5, 20)
+    lanes = P.pack_lanes(hs, caps=RETRY_CAPS, target_lane_len=64,
+                         seg_align=1)
+    jlanes = JP.pack_lanes(jhs, caps=jcaps(RETRY_CAPS), target_lane_len=64,
+                           seg_align=1)
+    assert lanes.seg_end[:, : lanes.scan_len - 1].any()   # interior ends
     st = S.state_from_numpy(S.empty_state(lanes.lanes, RETRY_CAPS), "cpu")
-    out0 = S.state_from_numpy(S.empty_state(3, RETRY_CAPS), "cpu")
-    with pytest.raises(ValueError, match="tb-aligned"):
-        RC.replay_scan_packed(st, out0, torch.from_numpy(lanes.teb()),
-                              lanes.seg_end, lanes.out_row, RETRY_CAPS,
-                              tb=8)
+    out0 = S.state_from_numpy(S.empty_state(5, RETRY_CAPS), "cpu")
+    _, got = RC.replay_scan_packed(st, out0, torch.from_numpy(lanes.teb()),
+                                   lanes.seg_end, lanes.out_row, RETRY_CAPS)
+    want = j_replay_packed(jlanes, scan_mode="scan")
+    assert_state_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the fused packed route on random events against both reference routes
+# --------------------------------------------------------------------------
+
+
+def random_packing(caps, lanes, t, n_init, seed, tb=1):
+    """Random packed-route operands: events [L, T, EV_N] (every type,
+    padding, out-of-range slots), segment ends at random ``tb``-aligned
+    steps with every lane's last one at T - 1, a permuted output row per
+    segment, reset rows into ``n_init`` initial carries (the sentinel
+    ``n_init`` included), and random lane and init states."""
+    rng = np.random.default_rng(seed)
+    ev = random_events(caps, t, lanes, seed)
+    seg_end = np.zeros((lanes, t), bool)
+    seg_end[:, tb - 1 :: tb] = rng.random((lanes, t // tb)) < 0.2
+    seg_end[:, t - 1] = True
+    n_seg = int(seg_end.sum())
+    out_row = np.zeros((lanes, t), np.int32)
+    out_row[seg_end] = rng.permutation(n_seg)
+    reset_row = np.zeros((lanes, t), np.int32)
+    reset_row[seg_end] = rng.integers(0, n_init + 1, n_seg)
+
+    def rand_state(n):
+        return S.empty_state(n, caps).map(
+            lambda a: rng.integers(-5, 6, size=a.shape, dtype=np.int32))
+
+    return ev, seg_end, out_row, reset_row, rand_state(lanes), \
+        rand_state(n_init), n_seg
+
+
+def jax_state(st):
+    """A port (numpy) StateTensors as the reference's, on the device."""
+    return JS.StateTensors(*(jnp.asarray(getattr(st, f))
+                             for f in S.STATE_ROW_FIELDS))
+
+
+def port_packed(ev, seg_end, out_row, reset_row, state, init, caps,
+                n_out, narrow):
+    """The port's packed route on the CPU; returns numpy (lanes, out)."""
+    teb = np.ascontiguousarray(np.transpose(ev, (1, 2, 0)))
+    base, wide = None, ()
+    if narrow:
+        narrowed = RC.narrow_events_teb(teb)
+        assert narrowed is not None
+        teb, base, wide = narrowed
+    kw = {}
+    if init is not None:
+        kw = dict(init=S.state_from_numpy(init, "cpu"), reset_row=reset_row)
+    lanes, out = RC.replay_scan_packed(
+        S.state_from_numpy(state, "cpu"),
+        S.state_from_numpy(S.empty_state(n_out, caps), "cpu"),
+        torch.from_numpy(teb), seg_end, out_row, caps, base=base,
+        wide_cols=wide, **kw)
+    return lanes, out
+
+
+@pytest.mark.parametrize("resume", [False, True], ids=["empty", "init"])
+@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "int16"])
+def test_packed_route_matches_xla_packed_scan(narrow, resume):
+    """``replay_scan_packed`` (the plain fused route on the CPU) against
+    the reference's XLA packed scan on random events, with segment ends
+    at arbitrary steps, permuted output rows and resets into ``init``
+    (sentinel row included): output rows and final lane carries, exact."""
+    L, T, n_init = 200, 128, 7
+    ev, seg_end, out_row, reset_row, state, init, n_seg = random_packing(
+        CAPS, L, T, n_init, seed=11 + 2 * narrow + resume)
+    init = init if resume else None
+    lanes, out = port_packed(ev, seg_end, out_row, reset_row, state, init,
+                             CAPS, n_seg + 3, narrow)
+    kw = {}
+    if resume:
+        kw = dict(init=jax_state(init),
+                  reset_row_tm=jnp.asarray(reset_row.T.copy()))
+    want_lanes, want = j_replay_scan_packed(
+        jax_state(state), jax_state(S.empty_state(n_seg + 3, CAPS)),
+        jnp.asarray(np.ascontiguousarray(np.transpose(ev, (1, 0, 2)))),
+        jnp.asarray(seg_end.T.copy()), jnp.asarray(out_row.T.copy()), **kw)
+    assert_state_equal(out, jax.tree_util.tree_map(np.asarray, want))
+    assert_state_equal(lanes,
+                       jax.tree_util.tree_map(np.asarray, want_lanes))
+
+
+@pytest.mark.parametrize("resume", [False, True], ids=["empty", "init"])
+@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "int16"])
+def test_packed_route_matches_pallas_interpret(narrow, resume):
+    """The same against the reference's Pallas packed route in interpret
+    mode, whose between-block flush needs tb-aligned segment ends."""
+    L, T, n_init, tb = 64, 64, 5, 8
+    ev, seg_end, out_row, reset_row, state, init, n_seg = random_packing(
+        FAST_CAPS, L, T, n_init, seed=21 + 2 * narrow + resume, tb=tb)
+    init = init if resume else None
+    lanes, out = port_packed(ev, seg_end, out_row, reset_row, state, init,
+                             FAST_CAPS, n_seg, narrow)
+    teb = np.ascontiguousarray(np.transpose(ev, (1, 2, 0)))
+    base, wide = None, ()
+    if narrow:
+        teb, base, wide = RC.narrow_events_teb(teb)
+    jc = jcaps(FAST_CAPS)
+    kw = {}
+    if resume:
+        kw = dict(init=jax_state(init), reset_row=jnp.asarray(reset_row))
+    want_lanes, want = replay_scan_pallas_packed(
+        jax_state(state), jax_state(S.empty_state(n_seg, FAST_CAPS)),
+        jnp.asarray(teb), jnp.asarray(seg_end), jnp.asarray(out_row), jc,
+        tb=tb, interpret=True, bt=1024, base=base, wide_cols=wide, **kw)
+    assert_state_equal(out, jax.tree_util.tree_map(np.asarray, want))
+    assert_state_equal(lanes,
+                       jax.tree_util.tree_map(np.asarray, want_lanes))
+
+
+def test_packed_plain_out_of_range_columns_write_nothing():
+    """An output or reset column out of range writes nothing: the output
+    rows keep their values and the lane carries on unreset, so with every
+    column out of range the lanes end as one unpacked replay does."""
+    L, T = 24, 40
+    ev, seg_end, _, _, state, init, n_seg = random_packing(
+        CAPS, L, T, 3, seed=31)
+    teb = torch.from_numpy(np.ascontiguousarray(np.transpose(ev, (1, 2, 0))))
+    rm = RC.RowMap(CAPS)
+    rows = RC.state_to_rows(S.state_from_numpy(state, "cpu"), rm)
+    init_rows = RC.state_to_rows(S.state_from_numpy(init, "cpu"), rm)
+    out_rows = torch.full((rm.rows_padded, 4), 7, dtype=torch.int32)
+    rng = np.random.default_rng(3)
+    bad_out = np.where(seg_end, rng.choice([-1, 4, 99], seg_end.shape), 0)
+    bad_reset = np.where(seg_end, rng.choice([-1, 4, 50], seg_end.shape), 0)
+    ptr, ends = RC.segment_list(seg_end, bad_out, bad_reset)
+    assert len(ends) == n_seg
+    got, got_out = RC.replay_rows_packed_plain(
+        teb, rows, CAPS, ptr, ends, out_rows, init_rows)
+    assert torch.equal(got, RC.replay_rows_plain(teb, rows, CAPS))
+    assert torch.equal(got_out, out_rows)
+    # one segment back in range: its lane flushes there and resets
+    ln = int(np.nonzero(seg_end[:, : T - 1].any(axis=1))[0][0])
+    t = int(np.nonzero(seg_end[ln])[0][0])
+    ends[ptr[ln], 1:] = (2, 1)
+    got, got_out = RC.replay_rows_packed_plain(
+        teb, rows, CAPS, ptr, ends, out_rows, init_rows)
+    head = RC.replay_rows_plain(teb, rows, CAPS, t0=0, t1=t + 1)
+    assert torch.equal(got_out[:, 2], head[:, ln])
+    assert torch.equal(got_out[:, [0, 1, 3]], out_rows[:, [0, 1, 3]])
+    restart = head.clone()
+    restart[:, ln] = init_rows[:, 1]
+    tail = RC.replay_rows_plain(teb, restart, CAPS, t0=t + 1, t1=T)
+    assert torch.equal(got[:, ln], tail[:, ln])
+
+
+@pytest.mark.parametrize("window", [(7, 7), (7, 8), (0, 1), (39, 40)])
+def test_replay_rows_one_step_and_empty_windows_on_cpu(window):
+    """``replay_rows`` over an empty window returns the rows unchanged and
+    over a one-step window applies exactly that step (what the hybrid
+    chunker launches), without counting a launch on the CPU."""
+    t0, t1 = window
+    ev = random_events(CAPS, 40, 16, seed=6)
+    teb = torch.from_numpy(np.ascontiguousarray(np.transpose(ev, (1, 2, 0))))
+    rm = RC.RowMap(CAPS)
+    rows = RC.replay_rows_plain(
+        teb, RC.state_to_rows(
+            S.state_from_numpy(S.empty_state(16, CAPS), "cpu"), rm),
+        CAPS, t0=0, t1=t0)
+    before = RC.replay_rows.launches
+    out = torch.empty_like(rows)
+    got = RC.replay_rows(teb, rows, CAPS, t0=t0, t1=t1, out=out)
+    assert got is out
+    want = rows if t0 == t1 else RC.replay_rows_plain(teb[t0:t1], rows, CAPS)
+    assert torch.equal(got, want)
+    assert RC.replay_rows.launches == before
