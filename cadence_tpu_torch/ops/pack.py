@@ -36,6 +36,7 @@ import numpy as np
 from ..core.enums import EventType, TimeoutType
 from ..core.events import HistoryEvent
 from ..core.ids import EMPTY_EVENT_ID
+from ..core.mutable_state import MutableState
 from ..utils.hashing import hash31
 
 from . import schema as S
@@ -44,30 +45,6 @@ SECONDS = 1_000_000_000  # ns per second
 _INT32_MAX = 2**31 - 1
 
 from .grid import round_scan_len  # noqa: E402,F401
-
-# reference: dynamicconfig MaxAutoResetPoints (default 20)
-MAX_RESET_POINTS = 20
-
-
-def record_reset_point(
-    points: List[Dict[str, Any]], checksum: str, run_id: str,
-    completed_event_id: int, created_time: int,
-) -> None:
-    """Append the first-completed-decision-per-binary reset anchor
-    (reference addBinaryCheckSumIfNotExists) with dedup + cap — the
-    reference package's ``MutableState.record_reset_point``."""
-    if not checksum or any(
-        p.get("binary_checksum") == checksum for p in points
-    ):
-        return
-    points.append({
-        "binary_checksum": checksum,
-        "run_id": run_id,
-        "first_decision_completed_id": completed_event_id,
-        "created_time": created_time,
-        "resettable": True,
-    })
-    del points[:-MAX_RESET_POINTS]
 
 
 class PackError(Exception):
@@ -86,7 +63,8 @@ class PackResume:
     history — slot assignments, the live decision, version bookkeeping —
     captured so packing can continue from an event suffix exactly as if
     the whole history had been packed in one call. Stored alongside the
-    device state row by a checkpoint; attached to every
+    device state row by the checkpoint plane
+    (``checkpoint/``); attached to every
     :class:`WorkflowSideTable` as ``side.resume`` after packing.
     """
 
@@ -535,7 +513,7 @@ def pack_workflow(
             elif et == EventType.DecisionTaskCompleted:
                 attrs[0] = a.get("started_event_id", EMPTY_EVENT_ID)
                 pending_dec = None
-                record_reset_point(
+                MutableState.record_reset_point(
                     side.auto_reset_points,
                     a.get("binary_checksum", "") or "",
                     side.run_id, ev.event_id, ev.timestamp,

@@ -1,8 +1,10 @@
-"""Benchmark workload histories: echo, signal, timer storm and retry-deep.
+"""Benchmark workload histories: echo, signal, timer storm, retry-deep and
+the NDC replication storm.
 
 Shapes mirror Cadence's canary workload definitions (canary/const.go):
 echo, signal-heavy, timer storm (cron/timeout-class) and
-activity-retry/concurrent deep histories. Each generator returns the
+activity-retry/concurrent deep histories, and the NDC storm's fuzzed
+mixes (``testing/event_generator.py``). Each generator returns the
 transaction-batch list the packer consumes. A copy of
 the reference package's generators: the same ``random.Random`` seed
 gives the same histories in both packages.
@@ -191,3 +193,10 @@ def retry_deep_history(rng: random.Random, v: int = 10,
                     )])
     return out
 
+
+def ndc_storm_history(fuzzer, depth: int = 1000) -> Batches:
+    """NDC replication storm: the fuzzer's mixed-event histories with
+    failover-version bumps. No decision closes them (``close_prob=0``);
+    the fuzzer's environment still ends each with a terminate or a
+    timeout, as the reference's generator does."""
+    return fuzzer.generate(target_events=depth, close_prob=0.0)

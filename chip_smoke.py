@@ -34,7 +34,16 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
 7. ``assoc_lanes``: ``replay_assoc_lanes(impl="segscan")`` and
    ``replay_stream(scan_mode="assoc")``, bucketed and unbucketed, on the
    phase-4 mix, every snapshot against the FSM route's;
-8. the kernel list with launch counts on the main paths, then the device
+8. ``rebuild``: the rebuild path, ``StateRebuilder.rebuild_many`` on the
+   card with the rebuilder's default capacities (R_pad = 944): the
+   reference bench's ``rebuild_warm`` cell at its chip size (256
+   retry_deep histories of 1,000 events, a cold and a checkpointed warm
+   pass, every rebuilt run against the host oracle ``rebuild()``), the
+   p50 and p99 of one rebuild request on the card and on the host
+   oracle, an ``ndc_storm`` rebuild storm (4,096 fuzzed histories, a
+   seeded sample against the host oracle), and the FSM kernel's time at
+   the cold pass's batch against its bound;
+9. the kernel list with launch counts on the main paths, then the device
    line.
 
 Any failure exits non-zero without the final line. Needs one CUDA card;
@@ -43,6 +52,7 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import random
 import subprocess
@@ -72,6 +82,19 @@ SEGSCAN_L, SEGSCAN_C, SEGSCAN_TS = 4096, 24, (1024, 1000)
 # phase 6: histories of the assoc main path (the segscan form's [T, L, 24]
 # int32 streams at 65,536 lanes would need 25.8 GB for four of them alone)
 ASSOC_HISTORIES = 16384
+
+# phase 8, the rebuild path. bench.py's rebuild_warm cell at its chip size
+# (bench.py:1063-1206, :2392): 256 retry_deep histories of depth 1,000 from
+# random.Random(45), their last eighth appended after an untimed prefix
+# pass writes one checkpoint per run, one warm-up and 2 timed passes
+WARM_N, WARM_DEPTH, WARM_TAIL, WARM_ITERS = 256, 1000, 0.125, 2
+REBUILD_LANE_LEN = 1024
+# the p50 of one rebuild request: the first 200 runs of that cohort
+P50_REQUESTS = 200
+# the ndc_storm rebuild storm: bench.py's batch is 32,768 fuzzed histories
+# (bench.py:2385-2387); cut to 4,096 to fit this run's time, a seeded
+# sample of 256 held against the host oracle
+STORM_N, STORM_DEPTH, STORM_SAMPLE, STORM_SEED = 4096, 1000, 256, 5000
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; int32 ALU ops/s is
 # half the 67 TFLOP/s float32 rate (64 INT32 lanes per SM against 128
@@ -767,6 +790,301 @@ def time_packed(torch, np, S, RC, caps, results):
     return out
 
 
+# -- phase 8: the rebuild path ------------------------------------------
+
+
+def task_rows(tasks):
+    """Tasks field by field, the task type as an int."""
+    return [{k: int(v) if k == "task_type" else v
+             for k, v in dataclasses.asdict(t).items()} for t in tasks]
+
+
+def rebuild_key(unpack, result):
+    """A rebuilt run as data: its canonical snapshot, its transfer and
+    timer tasks field by field, and its branch token."""
+    ms, transfer, timer = result
+    return (unpack.mutable_state_to_snapshot(ms), task_rows(transfer),
+            task_rows(timer), ms.execution_info.branch_token)
+
+
+def store_run(hist, i, batches):
+    """Append run ``i``'s history to a branch of its own; returns its
+    request (workflow ``wf-i``, run ``run-i``, as the reference bench
+    names them)."""
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest)
+
+    branch = hist.new_history_branch(tree_id=f"run-{i}")
+    for txn, b in enumerate(batches, 1):
+        hist.append_history_nodes(branch, b, transaction_id=txn)
+    return RebuildRequest(
+        domain_id="dom", workflow_id=f"wf-{i}", run_id=f"run-{i}",
+        branch_token=branch.to_json().encode())
+
+
+def warm_cohort():
+    """bench.py's rebuild_warm cohort: retry_deep histories cut where
+    the last ``WARM_TAIL`` of their events starts (at least the start
+    batch kept); the prefixes go to a memory history store, the tails
+    wait to be appended after the prefix pass."""
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        MemoryHistoryManager)
+    from cadence_tpu_torch.testing import workloads as W
+
+    rng = random.Random(45)
+    full, cuts = [], []
+    total = suffix = 0
+    for _ in range(WARM_N):
+        batches = W.retry_deep_history(rng, depth=WARM_DEPTH)
+        n_events = sum(len(b) for b in batches)
+        cut, seen = len(batches), 0
+        for k, b in enumerate(batches):
+            if seen + len(b) > int(n_events * (1.0 - WARM_TAIL)):
+                cut = max(k, 1)
+                break
+            seen += len(b)
+        full.append(batches)
+        cuts.append(cut)
+        total += n_events
+        suffix += sum(len(b) for b in batches[cut:])
+    hist = MemoryHistoryManager()
+    reqs = [store_run(hist, i, b[:c])
+            for i, (b, c) in enumerate(zip(full, cuts))]
+    return dict(hist=hist, reqs=reqs, full=full, cuts=cuts,
+                total_events=total, suffix_events=suffix)
+
+
+def append_tails(c):
+    from cadence_tpu_torch.runtime.persistence.records import BranchToken
+
+    for req, batches, cut in zip(c["reqs"], c["full"], c["cuts"]):
+        branch = BranchToken.from_json(req.branch_token.decode())
+        for txn, b in enumerate(batches[cut:], cut + 1):
+            c["hist"].append_history_nodes(branch, b, transaction_id=txn)
+
+
+def storm_cohort():
+    """``STORM_N`` ndc_storm histories, the fuzzer seeded per history,
+    each stored as it is made."""
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        MemoryHistoryManager)
+    from cadence_tpu_torch.testing import workloads as W
+    from cadence_tpu_torch.testing.event_generator import HistoryFuzzer
+
+    hist = MemoryHistoryManager()
+    reqs, events = [], 0
+    for i in range(STORM_N):
+        batches = W.ndc_storm_history(HistoryFuzzer(seed=STORM_SEED + i),
+                                      depth=STORM_DEPTH)
+        events += sum(len(b) for b in batches)
+        reqs.append(store_run(hist, i, batches))
+    return dict(hist=hist, reqs=reqs, events=events)
+
+
+def timed_passes(rb, reqs, iters):
+    """bench.py's discipline: one warm-up pass, then ``iters`` timed
+    passes; returns (mean s a pass, the last pass's results)."""
+    rb.rebuild_many(reqs)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = rb.rebuild_many(reqs)
+    return (time.perf_counter() - t0) / iters, out
+
+
+def wall_split(scope, passes):
+    """The rebuilder's own timers, per pass: history read (checkpoint
+    consult included), pack + device (the wait for the dispatcher), and
+    rehydrate + refresh (checkpoint writes included)."""
+    reg = scope.registry
+    return {name: reg.timer_stats(timer).total_s / passes
+            for name, timer in (("history_read_s", "history_read"),
+                                ("pack_device_s", "dispatch_wait"),
+                                ("rehydrate_refresh_s", "rehydrate"))}
+
+
+def fsm_profiled(torch, fn):
+    """(result, wall s, device ms of each FSM kernel launch) of one call
+    of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "replay_fsm" in e.name]
+    return res, wall, ms
+
+
+def percentiles(np, ms):
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
+def phase_rebuild(torch, np, unpack, RC):
+    """Drive the rebuild path on the card; returns the phase record
+    (its checks applied) and the FSM launches it made. The caller
+    times the kernel at the path's batch afterwards."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, CheckpointPolicy, MemoryCheckpointStore)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        StateRebuilder)
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    t0 = time.perf_counter()
+    c = warm_cohort()
+    warm_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storm = storm_cohort()
+    storm_setup_s = time.perf_counter() - t0
+    hist, reqs = c["hist"], c["reqs"]
+    store = MemoryCheckpointStore()
+
+    # the main path, launches counted from zero
+    RC.replay_rows.launches = 0
+    t0 = time.perf_counter()
+    StateRebuilder(hist, lane_len=REBUILD_LANE_LEN,
+                   checkpoints=CheckpointManager(
+                       store, CheckpointPolicy(every_events=1, keep_last=1))
+                   ).rebuild_many(reqs)
+    prefix_pass_s = time.perf_counter() - t0
+    checkpoints_written = store.count_checkpoints()
+    append_tails(c)
+    cold_scope, warm_scope = Scope(), Scope()
+    cold_s, cold_out = timed_passes(
+        StateRebuilder(hist, lane_len=REBUILD_LANE_LEN, metrics=cold_scope),
+        reqs, WARM_ITERS)
+    # a huge every_events keeps the warm pass read-only on the store
+    warm_s, warm_out = timed_passes(
+        StateRebuilder(hist, lane_len=REBUILD_LANE_LEN, metrics=warm_scope,
+                       checkpoints=CheckpointManager(
+                           store, CheckpointPolicy(every_events=1 << 30,
+                                                   keep_last=1))),
+        reqs, WARM_ITERS)
+    one_scope = Scope()
+    one = StateRebuilder(hist, lane_len=REBUILD_LANE_LEN, metrics=one_scope)
+    one_ms, one_out = [], []
+    for r in reqs[:P50_REQUESTS]:
+        t0 = time.perf_counter()
+        one_out += one.rebuild_many([r])
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    storm_scope = Scope()
+    storm_out, storm_wall, storm_fsm_ms = fsm_profiled(
+        torch, lambda: StateRebuilder(
+            storm["hist"], lane_len=REBUILD_LANE_LEN,
+            metrics=storm_scope).rebuild_many(storm["reqs"]))
+    launches = RC.replay_rows.launches
+
+    # the host oracle, outside the counted window
+    oracle, host_ms = [], []
+    for r in reqs:
+        t0 = time.perf_counter()
+        oracle.append(rebuild_key(unpack, one.rebuild(r)))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    sample = random.Random(STORM_SEED).sample(range(STORM_N), STORM_SAMPLE)
+    storm_rb = StateRebuilder(storm["hist"])
+    storm_mism = sum(
+        rebuild_key(unpack, storm_out[i])
+        != rebuild_key(unpack, storm_rb.rebuild(storm["reqs"][i]))
+        for i in sample)
+    mism = {name: sum(rebuild_key(unpack, g) != w
+                      for g, w in zip(out, oracle))
+            for name, out in (("cold", cold_out), ("warm", warm_out),
+                              ("one_request", one_out))}
+    mism["storm_sample"] = storm_mism
+
+    passes = WARM_ITERS + 1
+    reg = warm_scope.registry
+    hits = reg.counter_value("checkpoint_hit")
+    lookups = hits + reg.counter_value("checkpoint_miss") + \
+        reg.counter_value("checkpoint_invalidated")
+    saved = reg.counter_value("events_replayed_saved") // passes
+    suffix_frac = 1.0 - saved / c["total_events"]
+    configured = c["suffix_events"] / c["total_events"]
+    fallbacks = {name: s.registry.counter_value("host_fallbacks")
+                 for name, s in (("cold", cold_scope), ("warm", warm_scope),
+                                 ("storm", storm_scope))}
+    rec = {
+        "phase": "rebuild",
+        "rebuild_warm": {
+            "histories": WARM_N, "depth": WARM_DEPTH, "tail_frac": WARM_TAIL,
+            "iters": WARM_ITERS, "lane_len": REBUILD_LANE_LEN,
+            "mean_depth": c["total_events"] / WARM_N,
+            "setup_s": warm_setup_s, "prefix_pass_s": prefix_pass_s,
+            "checkpoints_written": checkpoints_written,
+            "cold_histories_per_s": WARM_N / cold_s,
+            "warm_histories_per_s": WARM_N / warm_s,
+            "vs_cold": cold_s / warm_s,
+            "cold_batch_s": cold_s, "warm_batch_s": warm_s,
+            "checkpoint_hit_rate": hits / max(lookups, 1),
+            "suffix_frac": suffix_frac,
+            "suffix_frac_configured": configured,
+            "events_replayed_saved": saved,
+            "host_fallbacks": fallbacks["cold"] + fallbacks["warm"],
+            "wall_split_cold": wall_split(cold_scope, passes),
+            "wall_split_warm": wall_split(warm_scope, passes),
+        },
+        "rebuild_one_request": {
+            "card": percentiles(np, one_ms),
+            "card_wall_split": wall_split(one_scope, P50_REQUESTS),
+            "host_oracle": percentiles(np, host_ms[:P50_REQUESTS]),
+            "host_oracle_all_256": percentiles(np, host_ms),
+        },
+        "ndc_storm": {
+            "histories": STORM_N, "cut_from": 32768, "depth": STORM_DEPTH,
+            "events": storm["events"], "setup_s": storm_setup_s,
+            "wall_s": storm_wall, "histories_per_s": STORM_N / storm_wall,
+            "host_fallbacks": fallbacks["storm"],
+            "host_fallback_s": storm_scope.registry.timer_stats(
+                "host_fallback").total_s,
+            "fsm_launches": len(storm_fsm_ms),
+            "fsm_ms_per_batch": storm_fsm_ms,
+            "wall_split": wall_split(storm_scope, 1),
+            "sample": STORM_SAMPLE, "profiled": True,
+        },
+        "fsm_launches": launches,
+        "mismatches": mism,
+    }
+    emit(rec)
+    check(not any(mism.values()), f"rebuilt runs differ from the host "
+          f"oracle: {mism}")
+    check(checkpoints_written == WARM_N,
+          f"the prefix pass wrote {checkpoints_written} checkpoints")
+    check(fallbacks["cold"] == fallbacks["warm"] == 0,
+          f"rebuild_warm took the host route: {fallbacks}")
+    check(hits == lookups == WARM_N * passes,
+          f"warm checkpoint hits {hits} of {lookups} lookups")
+    check(abs(suffix_frac - configured) <= 0.02,
+          f"measured suffix_frac {suffix_frac} against {configured}")
+    check(launches > 0, "the rebuild path launched no FSM kernel")
+    return rec, launches, c
+
+
+def time_rebuild_kernel(torch, np, S, P, RC, c):
+    """The FSM kernel at the cold pass's batch: the cohort's histories
+    packed as the dispatcher packs them, at the rebuilder's default
+    capacities. There R_pad is 944 (152 at the retry_deep caps): a block
+    holds 32 lanes, one warp an SM, and 256 histories fill 8 of the
+    card's 132 SMs, so the launch is latency-bound."""
+    from cadence_tpu_torch.ops.dispatch import depth_buckets
+
+    caps = S.Capacities()
+    hs = [(f"wf-{i}", f"run-{i}", b) for i, b in enumerate(c["full"])]
+    packs = [(None, P.pack_lanes(bhs, caps=caps,
+                                 target_lane_len=REBUILD_LANE_LEN,
+                                 seg_align=16), None)
+             for _, bhs in depth_buckets(hs)]
+    rec = time_packed(torch, np, S, RC, caps, packs)
+    for r in rec:
+        r["R_pad"] = RC.RowMap(caps).rows_padded
+        r["lanes_per_block"] = RC.lanes_per_block(r["R_pad"], r["lanes"])
+    return rec
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -967,17 +1285,26 @@ def main() -> int:
           f"assoc snapshots differ from the FSM route: {mism_lanes} "
           f"lanes, {mism_sa} bucketed, {mism_ha} unbucketed")
 
-    # 8. kernels and device
+    # 8. the rebuild path, launches counted from zero inside the phase;
+    # then the kernel at the path's batch, outside the counted window
+    rebuild, launches_rebuild, cohort = phase_rebuild(torch, np, unpack, RC)
+    rebuild_kernel = time_rebuild_kernel(torch, np, S, P, RC, cohort)
+    del cohort
+    emit({"phase": "rebuild_kernel", "packed_route": rebuild_kernel,
+          "nvidia_smi": smi})
+
+    # 9. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
     t32 = timing["int32"]
     deep = max(packed_timing, key=lambda r: r["T"] * r["lanes"])
+    rk = max(rebuild_kernel, key=lambda r: r["T"] * r["lanes"])
     kernels = [{
         "name": "replay_fsm", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/replay_fsm.cu",
         "replaces": "cadence_tpu/ops/replay_pallas.py:153",
-        "launches": launches, "max_abs_err": rand_err,
+        "launches": launches + launches_rebuild, "max_abs_err": rand_err,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": None,
@@ -990,9 +1317,15 @@ def main() -> int:
         "packed_ms": deep["int32"]["ms"],
         "packed_bound_ms": deep["int32"]["bound_ms"],
         "packed_shape": f"T={deep['T']} L={deep['lanes']}",
+        "rebuild_ms": rk["int32"]["ms"],
+        "rebuild_ms_int16": rk["int16"]["ms"],
+        "rebuild_bound_ms": rk["int32"]["bound_ms"],
+        "rebuild_bound_ms_int16": rk["int16"]["bound_ms"],
+        "rebuild_shape": f"T={rk['T']} L={rk['lanes']} R_pad={rk['R_pad']}",
         "launches_by_route": {"replay_packed": launches_packed,
                               "replay_stream[bucket]": launches_stream,
-                              "replay_stream[unbucketed]": launches_hist},
+                              "replay_stream[unbucketed]": launches_hist,
+                              "rebuild_many": launches_rebuild},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

@@ -200,15 +200,18 @@ def test_schema_constants_match_kernel_source():
 
 def test_import_hygiene():
     """Importing the port, the parallel-in-time replay and its scan
-    kernel's wrapper included, loads neither jax nor the reference
-    package."""
+    kernel's wrapper, the rebuilder and the checkpoint plane included,
+    loads neither jax nor the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
         "import cadence_tpu_torch.ops.dispatch, cadence_tpu_torch.ops.unpack\n"
         "import cadence_tpu_torch.ops.assoc, cadence_tpu_torch.ops.assoc_cuda\n"
         "import cadence_tpu_torch.testing.workloads\n"
+        "import cadence_tpu_torch.testing.event_generator\n"
         "import cadence_tpu_torch.core.history_factory\n"
+        "import cadence_tpu_torch.runtime.replication.rebuilder\n"
+        "import cadence_tpu_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
