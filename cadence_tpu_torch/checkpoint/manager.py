@@ -22,8 +22,9 @@ A copy of the reference package's manager. Because ``maybe_record``
 swallows every exception, a write that always fails (a device tensor
 where the row copy needs numpy, say) would leave every rebuild correct
 and every later one cold: the rebuilder hands it numpy state only, and
-the tests and the smoke run count the hits of a warm pass. The serving
-plane's eviction ``flush`` waits for the serving engine's port.
+the tests and the smoke run count the hits of a warm pass. ``flush`` is
+the serving plane's policy-free eviction write; it never raises either,
+and the serving engine counts a False as a flush failure.
 """
 
 from __future__ import annotations
@@ -259,6 +260,59 @@ class CheckpointManager:
             return True
         except Exception as e:
             self._log.warning(f"checkpoint write failed ({e}); skipped")
+            return False
+
+    def flush(
+        self,
+        branch_token,
+        state: S.StateTensors,
+        row: int,
+        side: WorkflowSideTable,
+        epoch_s: int,
+        caps: S.Capacities,
+        domain_id: str = "",
+        workflow_id: str = "",
+        run_id: str = "",
+    ) -> bool:
+        """Policy-free snapshot write: the serving plane's lane-eviction
+        flush. Unlike ``maybe_record`` the write is always due (an
+        evicted resident row is the newest state and must survive the
+        recycle); retention still prunes. Never raises: a failed flush
+        returns False and the caller degrades to cold readmission from
+        the history store."""
+        try:
+            if side.resume is None:
+                return False
+            key = _branch_key(branch_token)
+            state_row = S.state_row(state, row)
+            event_id = int(state_row["exec_info"][S.X_NEXT_EVENT_ID]) - 1
+            if event_id < 1:
+                return False
+            n = int(state_row["vh_len"])
+            ckpt = ReplayCheckpoint(
+                branch_key=key,
+                tree_id=_tree_id(key),
+                event_id=event_id,
+                fingerprint=self.fingerprint,
+                epoch_s=epoch_s,
+                caps=caps,
+                vh_items=[
+                    (int(e), int(v))
+                    for e, v in state_row["vh_items"][:n]
+                ],
+                state_row=state_row,
+                resume=side.resume,
+                side=side,
+                domain_id=domain_id,
+                workflow_id=workflow_id,
+                run_id=run_id,
+                created_at=self._clock(),
+            )
+            self.store.put_checkpoint(ckpt)
+            self.store.prune_tree(ckpt.tree_id, self.policy.keep_last)
+            return True
+        except Exception as e:
+            self._log.warning(f"checkpoint flush failed ({e}); skipped")
             return False
 
     # -- conversions ---------------------------------------------------

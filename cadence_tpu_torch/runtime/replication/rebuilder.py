@@ -15,15 +15,19 @@ tasks and writes fresh checkpoints. A batch the packer refuses (capacity
 overflow, a value the device encoding cannot hold) falls back, run by
 run, to the host oracle, and that route is counted.
 
+Resident-lane consult: with a serving engine attached, a request whose
+pinned tip, branch and (when given) version-history items match a
+resident lane exactly rehydrates from the lane's row, with no history
+read and no replay (``serving_resident_hits``). Anything else falls
+through to the checkpoint and cold paths.
+
 Checkpointed incremental replay: with a ``CheckpointManager`` attached a
 request whose newest valid snapshot is found reads and replays only the
 event suffix past it (the snapshot row seeds the lane's carry), and one
 at the branch tip skips the device (rehydrate and refresh only). Any
 checkpoint-plane failure degrades that request to a full replay.
 
-Not ported yet: the serving engine's resident-lane consult (the
-reference's ``_consult_serving``, with the serving port) and the
-dispatcher's device-step metrics.
+Not ported yet: the dispatcher's device-step metrics.
 """
 
 from __future__ import annotations
@@ -93,6 +97,9 @@ class StateRebuilder:
     histories share lanes back to back instead of each padding a lane to
     the deepest.
     ``checkpoints``: a ``CheckpointManager``, or None (every rebuild cold).
+    ``serving``: a ``serving.ResidentEngine``, or None; consulted first
+    (``_consult_serving``), its hits counted as ``serving_resident_hits``
+    under ``layer=serving``.
     ``metrics``: a ``Scope``; the checkpoint counters land under
     ``layer=checkpoint`` (``checkpoint_hit`` / ``_miss`` /
     ``_invalidated``, ``events_replayed_saved``) and the rebuild's own
@@ -107,16 +114,19 @@ class StateRebuilder:
     def __init__(self, history: HistoryManager,
                  domain_resolver=lambda name: name,
                  chunk_size=0, lane_len: int = 1024,
-                 checkpoints=None, metrics=None, device="cuda") -> None:
+                 checkpoints=None, metrics=None, serving=None,
+                 device="cuda") -> None:
         self.history = history
         self.domain_resolver = domain_resolver
         self.chunk_size = chunk_size
         self.lane_len = lane_len
         self.checkpoints = checkpoints
+        self.serving = serving
         self.device = device
         scope = metrics if metrics is not None else NOOP
         self._metrics = scope.tagged(layer="checkpoint")
         self._rebuild_metrics = scope.tagged(layer="rebuild")
+        self._serving_metrics = scope.tagged(layer="serving")
 
     def _resolve_chunk(self, device) -> int:
         configured = (
@@ -162,6 +172,45 @@ class StateRebuilder:
         )
         ms.execution_info.branch_token = req.branch_token
         transfer, timer = refresh_tasks(ms)
+        return ms, transfer, timer
+
+    # -- resident-lane consult -----------------------------------------
+
+    def _consult_serving(self, req: RebuildRequest):
+        """Rehydrate one rebuild from a resident serving lane, or None.
+
+        Sound only under exact-match guards: the caller pinned the target
+        tip (``next_event_id``) and the lane is at it, the lane was seated
+        from the same branch, and, when the caller supplied them (the NDC
+        path), the lane's version-history items equal the target's.
+        Anything else, a dirty lane the engine fails to compose included,
+        falls through to the checkpoint and cold paths. A fault of the
+        card while the engine composes a dirty lane raises, as every
+        device fault of the port does."""
+        if self.serving is None or not req.next_event_id:
+            return None
+        got = self.serving.resident_row(
+            req.workflow_id, req.run_id, domain_id=req.domain_id
+        )
+        if got is None:
+            return None
+        if got.branch_token and got.branch_token != req.branch_token:
+            return None
+        row = got.state_row
+        if int(row["exec_info"][S.X_NEXT_EVENT_ID]) != req.next_event_id:
+            return None
+        if req.version_history_items is not None:
+            n = int(row["vh_len"])
+            items = [(int(e), int(v)) for e, v in row["vh_items"][:n]]
+            want = [
+                (int(e), int(v)) for e, v in req.version_history_items
+            ]
+            if items != want:
+                return None
+        ms = got.mutable_state()
+        ms.execution_info.branch_token = req.branch_token
+        transfer, timer = refresh_tasks(ms)
+        self._serving_metrics.inc("serving_resident_hits")
         return ms, transfer, timer
 
     # -- checkpoint consult --------------------------------------------
@@ -211,11 +260,16 @@ class StateRebuilder:
         )
 
     def _prepare(self, reqs, caps, out):
-        """Consult checkpoints and read what must be replayed. Fills
-        ``out`` for tip hits; returns the pending (wf, run, batches)
-        histories, their resume states and their request indices."""
+        """Consult resident lanes and checkpoints, and read what must be
+        replayed. Fills ``out`` for resident and tip hits; returns the
+        pending (wf, run, batches) histories, their resume states and
+        their request indices."""
         histories, resumes, pend_req = [], [], []
         for gi, r in enumerate(reqs):
+            hit = self._consult_serving(r)
+            if hit is not None:
+                out[gi] = hit
+                continue
             ckpt = self._consult_checkpoint(r, caps)
             if ckpt is None:
                 batches = self._read_batches(r)

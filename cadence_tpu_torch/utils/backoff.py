@@ -1,11 +1,12 @@
-"""Activity retry-policy interval math.
+"""Activity retry-policy interval math and the pump loops' backoff ladder.
 
-A copy of the part of the reference package's ``utils/backoff.py`` that
-``MutableState.retry_activity`` uses: given a retry policy and the attempt
-that just failed, when does the next attempt start, and does the error or
-the expiration stop retrying (Cadence service/history/retry.go,
-getBackoffInterval). The host-operation retry loop of that module is not
-needed here.
+A copy of two parts of the reference package's ``utils/backoff.py``: the
+interval math ``MutableState.retry_activity`` uses (given a retry policy
+and the attempt that just failed, when does the next attempt start, and
+does the error or the expiration stop retrying; Cadence
+service/history/retry.go, getBackoffInterval), and ``BackoffLadder``, the
+error backoff of the serving tick pump. The host-operation retry loop of
+that module is not needed here.
 """
 
 from __future__ import annotations
@@ -73,3 +74,36 @@ def next_backoff_interval_seconds(
     if expiration_ts_ns and now_ns + interval * SECOND > expiration_ts_ns:
         return NO_INTERVAL
     return interval
+
+
+class BackoffLadder:
+    """Error-backoff ladder for pump loops.
+
+    * ``failure()`` returns the delay to sleep after a failed cycle (the
+      current rung) and doubles the rung, capped at ``cap_s``;
+    * ``success()`` resets the ladder to ``base_s`` so a healed
+      dependency resumes at full cadence at once.
+
+    The reference's ladder also jitters the delay down; its only caller
+    here, the serving tick pump, asks for no jitter, so the port leaves
+    it out.
+    """
+
+    def __init__(self, base_s: float, cap_s: float) -> None:
+        if base_s <= 0:
+            raise ValueError("backoff ladder: base_s must be > 0")
+        if cap_s < base_s:
+            raise ValueError("backoff ladder: cap_s must be >= base_s")
+        self.base_s = float(base_s)
+        self.cap_s = float(cap_s)
+        self._delay = self.base_s
+
+    def failure(self) -> float:
+        """Record a failed cycle; return the sleep delay."""
+        d = self._delay
+        self._delay = min(self._delay * 2.0, self.cap_s)
+        return d
+
+    def success(self) -> None:
+        """Reset: the next failure starts back at ``base_s``."""
+        self._delay = self.base_s

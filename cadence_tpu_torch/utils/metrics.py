@@ -1,13 +1,15 @@
-"""Counters and histogram timers for the rebuild path.
+"""Counters, gauges and histogram timers for the rebuild and serving
+paths.
 
 A trimmed copy of the reference package's ``utils/metrics.py``: a
-thread-safe ``Registry`` of counters and exponential-bucket histogram
-timers, and the tagged ``Scope`` the rebuilder and the checkpoint plane
-write to. Timers bucket by powers of two from 1 µs; ``timer_stats``
-returns ``(count, total_s, max_s)`` with ``p50``/``p99``/``avg``
-(linear interpolation inside the winning bucket, clamped to the observed
-max). Gauges, windows, the series cap and the device metrics plane of the
-reference module are not ported.
+thread-safe ``Registry`` of counters, last-value gauges and
+exponential-bucket histogram timers, and the tagged ``Scope`` the
+rebuilder, the checkpoint plane and the serving engine write to. Timers
+bucket by powers of two from 1 µs; ``timer_stats`` returns
+``(count, total_s, max_s)`` with ``p50``/``p99``/``avg`` (linear
+interpolation inside the winning bucket, clamped to the observed max).
+Windows, the series cap and the device metrics plane of the reference
+module are not ported.
 """
 
 from __future__ import annotations
@@ -134,10 +136,15 @@ class Registry:
         self._lock = threading.Lock()
         self._counters: Dict[Tuple[str, TagTuple], int] = defaultdict(int)
         self._timers: Dict[Tuple[str, TagTuple], Histogram] = {}
+        self._gauges: Dict[Tuple[str, TagTuple], float] = {}
 
     def inc(self, name: str, tags: TagTuple, delta: int = 1) -> None:
         with self._lock:
             self._counters[(name, tags)] += delta
+
+    def gauge(self, name: str, tags: TagTuple, value: float) -> None:
+        with self._lock:
+            self._gauges[(name, tags)] = value
 
     def record(self, name: str, tags: TagTuple, seconds: float) -> None:
         with self._lock:
@@ -156,6 +163,18 @@ class Registry:
                 return self._counters.get((name, _tags_key(tags)), 0)
             return sum(v for (n, _), v in self._counters.items()
                        if n == name)
+
+    def gauge_value(
+        self, name: str, tags: Optional[Dict[str, str]] = None,
+        default: float = 0.0,
+    ) -> float:
+        """The last value of one series (``tags`` given) or the largest
+        last value over every series of ``name``."""
+        with self._lock:
+            if tags is not None:
+                return self._gauges.get((name, _tags_key(tags)), default)
+            vals = [v for (n, _), v in self._gauges.items() if n == name]
+        return max(vals) if vals else default
 
     def timer_stats(
         self, name: str, tags: Optional[Dict[str, str]] = None,
@@ -202,6 +221,9 @@ class Scope:
 
     def inc(self, name: str, delta: int = 1) -> None:
         self.registry.inc(name, self._key, delta)
+
+    def gauge(self, name: str, value: float) -> None:
+        self.registry.gauge(name, self._key, value)
 
     def timer(self, name: str) -> Timer:
         return Timer(self.registry, name, self._key)

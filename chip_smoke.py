@@ -40,11 +40,23 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    retry_deep histories of 1,000 events, a cold and a checkpointed warm
    pass, every rebuilt run against the host oracle ``rebuild()``), the
    p50 and p99 of one rebuild request on the card and on the host
-   oracle, an ``ndc_storm`` rebuild storm (4,096 fuzzed histories, a
+   oracle, an ``ndc_storm`` rebuild storm (1,024 fuzzed histories, a
    seeded sample against the host oracle), and the FSM kernel's time at
    the cold pass's batch against its bound;
-9. the kernel list with launch counts on the main paths, then the device
-   line.
+9. ``serving``: the serving plane, ``ResidentEngine`` on the card, every
+   resident row checked against the card's cold replay of the same
+   history: (a) the reference bench's ``serve_continuous`` cell at its
+   chip size through the open-loop harness (decision latency p50/p99,
+   sustained qps, the O(Δ) counters); (b) a 4,096-lane megabatch, one
+   bulk seat and 8 ticks of one Δ a lane (each tick's wall split into
+   pack, replay and commit, its FSM launches, a seeded sample against the
+   CPU plain route), and the FSM kernel at one tick's pack against its
+   bound and its plain version; (c) eviction through the checkpoint
+   plane's ``flush`` and resumed re-admission; (d) the rebuilder's
+   resident-lane consult at the exact tip and one event off, and cold
+   reads of workflows without a lane;
+10. the kernel list with launch counts on the main paths, then the device
+    line.
 
 Any failure exits non-zero without the final line. Needs one CUDA card;
 exits non-zero without one.
@@ -53,6 +65,7 @@ exits non-zero without one.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import random
 import subprocess
@@ -92,9 +105,29 @@ REBUILD_LANE_LEN = 1024
 # the p50 of one rebuild request: the first 200 runs of that cohort
 P50_REQUESTS = 200
 # the ndc_storm rebuild storm: bench.py's batch is 32,768 fuzzed histories
-# (bench.py:2385-2387); cut to 4,096 to fit this run's time, a seeded
-# sample of 256 held against the host oracle
-STORM_N, STORM_DEPTH, STORM_SAMPLE, STORM_SEED = 4096, 1000, 256, 5000
+# (bench.py:2385-2387); cut to 1,024 to fit this run's time (4,096 and
+# 1,024 drained at the same rate, PERF.md), a seeded sample of 256 held
+# against the host oracle
+STORM_N, STORM_DEPTH, STORM_SAMPLE, STORM_SEED = 1024, 1000, 256, 5000
+
+# phase 9, the serving plane. (a) bench.py's serve_continuous cell at its
+# chip size (bench.py:1209-1354, :2412-2413): 48 signal_history workflows
+# of 60-400 events from random.Random(46), the first 40% of each one's
+# batches seated, Δs of 3 batches, 64 lanes, Poisson arrivals at 300 qps
+# (seed 7) through an admission TokenBucket(rps=600, burst=300)
+SERVE_CAPS = dict(max_events=512, max_activities=2, max_timers=2,
+                  max_children=2, max_request_cancels=2, max_signals_ext=4,
+                  max_version_items=2)
+SERVE_WORKFLOWS, SERVE_LANES, SERVE_QPS = 48, 64, 300.0
+SERVE_SEED, SERVE_ARRIVAL_SEED = 46, 7
+SERVE_MIN_EVENTS, SERVE_MAX_EVENTS = 60, 400
+SERVE_PREFIX, SERVE_DELTA_BATCHES = 0.4, 3
+# (b) a resident megabatch at full width: 4,096 workflows of the same
+# generator from random.Random(47), one bulk seat, 8 rounds of one Δ a
+# lane and one tick each; a seeded 256 also against the CPU plain route
+MEGA_LANES, MEGA_ROUNDS, MEGA_SEED, SERVE_SAMPLE = 4096, 8, 47, 256
+# (c) and (d): the first 256 workflows of (b); (d) cold-reads 8 more
+FLUSH_LANES, SERVE_COLD_READS = 256, 8
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; int32 ALU ops/s is
 # half the 67 TFLOP/s float32 rate (64 INT32 lanes per SM against 128
@@ -1085,6 +1118,563 @@ def time_rebuild_kernel(torch, np, S, P, RC, c):
     return rec
 
 
+# -- phase 9: the serving plane -------------------------------------------
+
+
+class ServeRoutes:
+    """FSM launches of the serving engine, by route: each wrapped engine
+    step adds the launches made while it ran to its route (seat, tick's
+    compose, cold read) and keeps each call's count; ``capture`` also
+    keeps the packs the tick's replays took."""
+
+    ROUTES = {"_seat": "serving_seat", "_compose": "serving_tick",
+              "_cold_read": "serving_cold_read"}
+
+    def __init__(self, RC):
+        self.RC = RC
+        self.counts = {r: 0 for r in self.ROUTES.values()}
+        self.calls = {r: [] for r in self.ROUTES.values()}
+        self.packs = []
+
+    def wrap(self, engine, capture=False):
+        for attr, route in self.ROUTES.items():
+            setattr(engine, attr, self._counted(getattr(engine, attr), route))
+        if capture:
+            replay = engine._replay
+
+            def keep(packed, scan_mode):
+                self.packs.append((scan_mode, packed))
+                return replay(packed, scan_mode=scan_mode)
+            engine._replay = keep
+        return engine
+
+    def _counted(self, fn, route):
+        def call(*a, **k):
+            start = self.RC.replay_rows.launches
+            try:
+                return fn(*a, **k)
+            finally:
+                n = self.RC.replay_rows.launches - start
+                self.counts[route] += n
+                self.calls[route].append(n)
+        return call
+
+
+def serve_cohort(W, n, seed, tag):
+    """bench.py's serve_continuous cohort: ``n`` open signal-dominated
+    histories from ``random.Random(seed)``, the first ``SERVE_PREFIX``
+    of each history's batches seated, the rest cut into Δs of
+    ``SERVE_DELTA_BATCHES`` batches. Returns (workloads, events a cold
+    per-arrival rebuild would replay, events appended)."""
+    from cadence_tpu_torch.serving import ServeWorkload
+
+    rng = random.Random(seed)
+    loads, cold_events, appended = [], 0, 0
+    for i in range(n):
+        batches = W.signal_history(rng, min_events=SERVE_MIN_EVENTS,
+                                   max_events=SERVE_MAX_EVENTS)
+        cut = max(1, int(len(batches) * SERVE_PREFIX))
+        deltas = [batches[k : k + SERVE_DELTA_BATCHES]
+                  for k in range(cut, len(batches), SERVE_DELTA_BATCHES)]
+        seen = sum(len(b) for b in batches[:cut])
+        for d in deltas:
+            dn = sum(len(b) for b in d)
+            seen += dn
+            appended += dn
+            cold_events += seen  # a cold read replays the whole prefix
+        loads.append(ServeWorkload(
+            domain_id="bench", workflow_id=f"serve-{tag}-wf-{i}",
+            run_id=f"serve-{tag}-run-{i}", branch_token=b"",
+            prefix=batches[:cut], deltas=deltas))
+    return loads, cold_events, appended
+
+
+def through(w, k):
+    """A workload's history through its first ``k`` Δs."""
+    return list(w.prefix) + [b for d in w.deltas[:k] for b in d]
+
+
+def cold_rows(S, P, replay_packed, caps, hists, device):
+    """Cold replays of full histories: [(row, epoch_s)], one history a
+    lane through ``replay_packed`` (the FSM route on the card)."""
+    pk = P.pack_histories(hists, caps=caps)
+    final = replay_packed(pk, device=device)
+    return [(S.state_row(final, i), pk.epoch_s) for i in range(len(hists))]
+
+
+def row_equal(np, S, row, epoch, cold):
+    """A resident row (at its lane's epoch) against a cold (row, epoch):
+    rows hold epoch-relative timestamps, so the resident row moves to
+    the cold replay's epoch first."""
+    want, want_epoch = cold
+    got = S.rebase_state_row(row, epoch - want_epoch)
+    return all(np.array_equal(got[f], want[f]) for f in S.STATE_ROW_FIELDS)
+
+
+def serve_counters(reg, *names):
+    return {n: reg.counter_value(n) for n in names}
+
+
+def phase_serve_continuous(torch, np, S, P, W, replay_packed, routes):
+    """(a) bench.py's serve_continuous at its chip size through the
+    open-loop harness, after an untimed warm round on its own engine;
+    every resident row against the card's cold replay."""
+    from cadence_tpu_torch.serving import (
+        ArrivalProcess, OpenLoopHarness, ResidentEngine)
+    from cadence_tpu_torch.utils.metrics import NOOP, Scope
+    from cadence_tpu_torch.utils.quotas import TokenBucket
+
+    caps = S.Capacities(**SERVE_CAPS)
+
+    def drive(tag, scope):
+        loads, cold_events, appended = serve_cohort(
+            W, SERVE_WORKFLOWS, SERVE_SEED, tag)
+        engine = routes.wrap(ResidentEngine(
+            lanes=SERVE_LANES, caps=caps, metrics=scope, device="cuda"))
+        run = OpenLoopHarness(
+            engine, loads, ArrivalProcess(qps=SERVE_QPS, kind="poisson",
+                                          seed=SERVE_ARRIVAL_SEED),
+            metrics=scope,
+            admission_bucket=TokenBucket(rps=SERVE_QPS * 2.0,
+                                         burst=max(8, int(SERVE_QPS))),
+        ).run()
+        return loads, cold_events, appended, run, engine
+
+    warm = drive("warm", NOOP)[4].drain()
+    ticks_before = len(routes.calls["serving_tick"])
+    scope = Scope()
+    reg = scope.registry
+    loads, cold_events, appended, run, engine = drive("run", scope)
+    tick_launches = routes.calls["serving_tick"][ticks_before:]
+    # every lane still resident, against the cold replay of its history
+    # up to its tip (a shed last arrival leaves a lane short of the end)
+    checked, resident = [], []
+    for w in loads:
+        got = engine.resident_row(w.workflow_id, w.run_id)
+        if got is None:
+            continue  # evicted idle (no checkpoint plane attached)
+        tip = int(got.state_row["exec_info"][S.X_NEXT_EVENT_ID])
+        hist = [b for b in through(w, len(w.deltas)) if b[-1].event_id < tip]
+        checked.append((w.workflow_id, w.run_id, hist))
+        resident.append(got)
+    cold = cold_rows(S, P, replay_packed, caps, checked, "cuda")
+    mism = sum(not row_equal(np, S, g.state_row, g.epoch_s, c)
+               for g, c in zip(resident, cold))
+    drained = engine.drain()
+    stats = reg.timer_stats("serve_decision")
+    # where a request's time goes: the engine's own timers, per request
+    per_request = {
+        f"{name}_ms": reg.timer_stats(timer).total_s * 1e3 / max(
+            run["completed"], 1)
+        for name, timer in (("tick", "serving_tick_seconds"),
+                            ("tick_pack", "serving_tick_pack"),
+                            ("tick_replay", "serving_tick_replay"),
+                            ("tick_commit", "serving_tick_commit"),
+                            ("read", "serving_read_seconds"))}
+    c = serve_counters(reg, "serving_resident_hits", "serving_cold_misses",
+                       "serving_appends", "serving_events_replayed",
+                       "serving_ticks", "serving_admit_failures",
+                       "serving_compose_failures")
+    rec = {
+        "part": "serve_continuous", "workflows": SERVE_WORKFLOWS,
+        "lanes": SERVE_LANES, "caps": SERVE_CAPS,
+        "arrival": "poisson", "qps_target": SERVE_QPS,
+        "requests": run["requests"], "completed": run["completed"],
+        "shed": run["shed"], "wall_s": run["wall_s"],
+        "qps_sustained": run["qps_sustained"],
+        "latency_p50_ms": stats.p50 * 1e3, "latency_p99_ms": stats.p99 * 1e3,
+        "engine_ms_per_request": per_request,
+        "resident_hit_rate": c["serving_resident_hits"] / max(
+            c["serving_resident_hits"] + c["serving_cold_misses"], 1),
+        "appends": c["serving_appends"], "ticks": c["serving_ticks"],
+        "appends_per_tick": c["serving_appends"] / max(
+            c["serving_ticks"], 1),
+        "events_appended": appended,
+        "events_replayed": c["serving_events_replayed"],
+        "events_per_append": c["serving_events_replayed"] / max(
+            c["serving_appends"], 1),
+        "cold_events_equiv": cold_events,
+        "suffix_frac": c["serving_events_replayed"] / max(cold_events, 1),
+        "admit_failures": c["serving_admit_failures"],
+        "compose_failures": c["serving_compose_failures"],
+        "drain_flush_failed": drained["flush_failed"],
+        "warm_drain_flush_failed": warm["flush_failed"],
+        "fsm_launches_per_tick_max": max(tick_launches, default=0),
+        "fsm_launches_ticks": sum(tick_launches),
+        "rows_checked": len(checked), "row_mismatches": mism,
+    }
+    emit({"phase": "serving", **rec})
+    check(mism == 0, f"serve_continuous: {mism} resident rows differ from "
+          "the cold replay")
+    check(len(checked) > 0, "serve_continuous: no resident row to check")
+    check(c["serving_admit_failures"] == c["serving_compose_failures"] == 0,
+          f"serve_continuous: failures {c}")
+    check(drained["flush_failed"] == warm["flush_failed"] == 0,
+          "serve_continuous: drain flush failed")
+    check(max(tick_launches, default=0) <= 2,
+          f"serve_continuous: a tick launched {max(tick_launches)} times")
+    check(run["completed"] > 0, "serve_continuous completed nothing")
+    return rec
+
+
+def phase_serve_megabatch(torch, np, S, P, W, replay_packed, classify_types,
+                          routes):
+    """(b) 4,096 resident lanes: one bulk seat through the dispatcher,
+    then ``MEGA_ROUNDS`` rounds of one Δ a lane and one tick for all;
+    every row against the card's cold replay, a seeded sample against
+    the CPU plain route."""
+    from cadence_tpu_torch.serving import ResidentEngine
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    caps = S.Capacities(**SERVE_CAPS)
+    t0 = time.perf_counter()
+    loads, _, _ = serve_cohort(W, MEGA_LANES, MEGA_SEED, "mega")
+    setup_s = time.perf_counter() - t0
+    scope = Scope()
+    reg = scope.registry
+    engine = routes.wrap(ResidentEngine(lanes=MEGA_LANES, caps=caps,
+                                        metrics=scope, device="cuda"),
+                         capture=True)
+    seat_launches = routes.counts["serving_seat"]
+    t0 = time.perf_counter()
+    tickets = engine.admit_many([
+        dict(domain_id=w.domain_id, workflow_id=w.workflow_id,
+             run_id=w.run_id, batches=w.prefix) for w in loads])
+    seat_s = time.perf_counter() - t0
+    seat_launches = routes.counts["serving_seat"] - seat_launches
+    check(None not in tickets.values(), "megabatch: a seat failed")
+
+    def timer_totals():
+        return {k: reg.timer_stats(f"serving_tick_{k}").total_s
+                for k in ("pack", "replay", "commit")}
+
+    ticks, appended = [], 0
+    for r in range(MEGA_ROUNDS):
+        groups, n_events = set(), 0
+        for w in loads:
+            if r < len(w.deltas):
+                d = w.deltas[r]
+                check(engine.append(tickets[(w.workflow_id, w.run_id)], d),
+                      f"megabatch: append refused in round {r}")
+                n_events += sum(len(b) for b in d)
+                _, non = classify_types({int(e.event_type)
+                                         for b in d for e in b})
+                groups.add("scan" if non else "auto")
+        appended += n_events
+        before = timer_totals()
+        n_calls = len(routes.calls["serving_tick"])
+        gen2 = gc.get_stats()[2]["collections"]
+        t0 = time.perf_counter()
+        stats = engine.tick()
+        wall = time.perf_counter() - t0
+        gen2 = gc.get_stats()[2]["collections"] - gen2
+        after = timer_totals()
+        launches = sum(routes.calls["serving_tick"][n_calls:])
+        split = {f"{k}_s": after[k] - before[k] for k in after}
+        ticks.append(dict(round=r, lanes=stats["composed"],
+                          events=n_events, wall_s=wall, **split,
+                          other_s=wall - sum(split.values()),
+                          groups=sorted(groups), fsm_launches=launches,
+                          gc_full_collections=gen2))
+        check(launches == len(groups) <= 2,
+              f"megabatch tick {r}: {launches} launches for groups {groups}")
+    replayed = reg.counter_value("serving_events_replayed")
+    # every row against the card's cold replay of its history so far
+    hists = [(w.workflow_id, w.run_id, through(w, MEGA_ROUNDS))
+             for w in loads]
+    reads = [engine.resident_row(w.workflow_id, w.run_id) for w in loads]
+    check(None not in reads, "megabatch: a lane is not resident")
+    t0 = time.perf_counter()
+    cold = cold_rows(S, P, replay_packed, caps, hists, "cuda")
+    cold_s = time.perf_counter() - t0
+    mism = sum(not row_equal(np, S, g.state_row, g.epoch_s, c)
+               for g, c in zip(reads, cold))
+    sample = random.Random(MEGA_SEED).sample(range(MEGA_LANES), SERVE_SAMPLE)
+    plain = cold_rows(S, P, replay_packed, caps, [hists[i] for i in sample],
+                      "cpu")
+    mism_plain = sum(not row_equal(np, S, reads[i].state_row,
+                                   reads[i].epoch_s, c)
+                     for i, c in zip(sample, plain))
+    c = serve_counters(reg, "serving_admit_failures",
+                       "serving_compose_failures")
+    rec = {
+        "part": "serve_megabatch", "lanes": MEGA_LANES,
+        "rounds": MEGA_ROUNDS, "caps": SERVE_CAPS, "setup_s": setup_s,
+        "seat_s": seat_s, "seat_events": sum(
+            sum(len(b) for b in w.prefix) for w in loads),
+        "seat_fsm_launches": seat_launches, "ticks": ticks,
+        "events_appended": appended, "events_replayed": replayed,
+        "cold_check_s": cold_s, "row_mismatches": mism,
+        "plain_sample": SERVE_SAMPLE, "plain_mismatches": mism_plain,
+        "admit_failures": c["serving_admit_failures"],
+        "compose_failures": c["serving_compose_failures"],
+    }
+    emit({"phase": "serving", **rec})
+    check(mism == mism_plain == 0, f"megabatch: {mism} rows differ from the "
+          f"card's cold replay, {mism_plain} from the CPU plain route")
+    check(replayed == appended, f"megabatch: replayed {replayed} events for "
+          f"{appended} appended (O(Δ) means equal)")
+    check(c["serving_admit_failures"] == c["serving_compose_failures"] == 0,
+          f"megabatch: failures {c}")
+    # the largest pack one tick replayed, for the kernel's timing
+    biggest = max(routes.packs, key=lambda mp: mp[1].lanes * mp[1].scan_len)
+    routes.packs.clear()
+    return rec, loads, hists, cold, biggest[1]
+
+
+def time_tick_pack(torch, np, S, RC, caps, packed):
+    """The FSM kernel at one tick's pack (every segment resumed from an
+    init column): CUDA-event mean against the packed bound, the plain
+    version's time, and kernel against plain on the card."""
+    rm = RC.RowMap(caps)
+    dev = "cuda"
+    init = packed.initial
+    ptr, ends = RC.segment_list(packed.seg_end, packed.out_row,
+                                packed.reset_rows())
+    ptr_d, ends_d = torch.from_numpy(ptr).to(dev), torch.from_numpy(
+        ends).to(dev)
+    rows0 = RC.state_to_rows(S.state_from_numpy(packed.lane_state0(init),
+                                                dev), rm)
+    n_out = packed.n_histories
+    out0 = RC.state_to_rows(S.state_from_numpy(S.empty_state(n_out, caps),
+                                               dev), rm)
+    empty = RC.state_to_rows(S.state_from_numpy(S.empty_state(1, caps), dev),
+                             rm)
+    init_rows = torch.cat([RC.state_to_rows(S.state_from_numpy(init, dev),
+                                            rm), empty], dim=1)
+    evd = torch.from_numpy(packed.teb()).to(dev)
+    out_k = out0.clone()
+    got = RC.replay_rows_packed(evd, rows0, caps, ptr_d, ends_d, out_k,
+                                init_rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = RC.replay_rows_packed_plain(evd, rows0, caps, ptr_d, ends_d,
+                                       out0.clone(), init_rows)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, equal = compare(torch, list(got), list(want))
+    rows_out = torch.empty_like(rows0)
+    ms = cuda_ms(lambda: RC.replay_rows_packed(
+        evd, rows0, caps, ptr_d, ends_d, out_k, init_rows, out=rows_out),
+        reps=20, warmup=2)
+    valid = int((packed.events[:, :, S.EV_TYPE] >= 0).sum())
+    nbytes, bound_ms, bound_by = packed_bound(
+        evd.numel() * evd.element_size(), rm.rows_padded, packed.lanes,
+        n_out, init_rows.shape[1], len(ends), valid)
+    rec = dict(lanes=packed.lanes, T=packed.scan_len, histories=n_out,
+               segments=len(ends), R_pad=rm.rows_padded, valid_events=valid,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, share_of_bound=bound_ms / ms,
+               max_abs_err=err, equal=equal,
+               plan=RC.kernel_plan(evd, caps))
+    emit({"phase": "serving", "part": "tick_kernel", **rec})
+    check(equal, "the tick's packed replay disagrees with plain")
+    return rec
+
+
+def split_type(A, deltas):
+    """The proven-affine event type whose removal from the affine set
+    splits these Δs most evenly into the tick's two groups: every Δ of
+    ``signal_history`` is affine, so without this seam the card never
+    sees a two-group tick."""
+    present = [{int(e.event_type) for b in d for e in b} for d in deltas]
+    best = min(A.assoc_types(), key=lambda t: abs(
+        2 * sum(t in p for p in present) - len(present)))
+    scan = sum(best in p for p in present)
+    return best, scan, len(present) - scan
+
+
+def phase_serve_flush(np, S, P, A, replay_packed, loads, cold, routes):
+    """(c) a 256-lane engine with a checkpoint plane over the first 256
+    workflows of (b): seated midway, one more Δ composed in a tick whose
+    lanes split into both groups (one event type taken out of the
+    engine's affine set, so the lanes whose Δ holds it compose in the
+    ``scan`` group) and checked against the card's cold replay, drained
+    (one flushed record a lane), then re-admitted with the histories of
+    (b): every seat resumes from its record and every row equals (b)'s
+    cold replay."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, CheckpointPolicy, MemoryCheckpointStore)
+    from cadence_tpu_torch.serving import ResidentEngine
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    caps = S.Capacities(**SERVE_CAPS)
+    loads = loads[:FLUSH_LANES]
+    half = MEGA_ROUNDS // 2
+    deltas = [w.deltas[half] for w in loads if half < len(w.deltas)]
+    dropped, n_scan, n_auto = split_type(A, deltas)
+    check(n_scan and n_auto, f"flush: no event type splits the tick's Δs "
+          f"({n_scan} scan, {n_auto} auto)")
+    store = MemoryCheckpointStore()
+    scope = Scope()
+    engine = routes.wrap(ResidentEngine(
+        lanes=FLUSH_LANES, caps=caps, metrics=scope, device="cuda",
+        affine_types=A.assoc_types() - {dropped},
+        checkpoints=CheckpointManager(store, CheckpointPolicy(
+            every_events=1, keep_last=1))))
+    tickets = engine.admit_many([
+        dict(domain_id=w.domain_id, workflow_id=w.workflow_id,
+             run_id=w.run_id, branch_token=serve_token(w),
+             batches=through(w, half)) for w in loads])
+    for w in loads:
+        if half < len(w.deltas):
+            engine.append(tickets[(w.workflow_id, w.run_id)], w.deltas[half])
+    n_calls = len(routes.calls["serving_tick"])
+    engine.tick()
+    tick_launches = sum(routes.calls["serving_tick"][n_calls:])
+    reads = [engine.resident_row(w.workflow_id, w.run_id) for w in loads]
+    check(None not in reads, "flush: a lane left the engine in the tick")
+    tick_cold = cold_rows(S, P, replay_packed, caps, [
+        (w.workflow_id, w.run_id, through(w, half + 1)) for w in loads],
+        "cuda")
+    tick_mism = sum(not row_equal(np, S, g.state_row, g.epoch_s, c)
+                    for g, c in zip(reads, tick_cold))
+    t0 = time.perf_counter()
+    drained = engine.drain()
+    drain_s = time.perf_counter() - t0
+    records = store.count_checkpoints()
+    t0 = time.perf_counter()
+    tickets = engine.admit_many([
+        dict(domain_id=w.domain_id, workflow_id=w.workflow_id,
+             run_id=w.run_id, branch_token=serve_token(w),
+             batches=through(w, MEGA_ROUNDS)) for w in loads])
+    readmit_s = time.perf_counter() - t0
+    reads = [engine.resident_row(w.workflow_id, w.run_id) for w in loads]
+    check(None not in reads, "flush: a re-admitted lane is not resident")
+    mism = sum(not row_equal(np, S, g.state_row, g.epoch_s, c)
+               for g, c in zip(reads, cold[:FLUSH_LANES]))
+    reg = scope.registry
+    resumed = reg.counter_value("serving_admit_resume")
+    rec = {"part": "serve_flush", "lanes": FLUSH_LANES,
+           "two_group_tick": {"type_out_of_affine_set": dropped,
+                              "scan_lanes": n_scan, "auto_lanes": n_auto,
+                              "fsm_launches": tick_launches,
+                              "row_mismatches": tick_mism},
+           "drain": drained, "drain_s": drain_s,
+           "checkpoint_records": records, "readmit_s": readmit_s,
+           "admit_resume": resumed, "row_mismatches": mism,
+           "flush_failures": reg.counter_value("serving_flush_failures")}
+    emit({"phase": "serving", **rec})
+    check(tick_launches == 2, f"flush: the two-group tick made "
+          f"{tick_launches} FSM launches")
+    check(tick_mism == 0, f"flush: {tick_mism} rows of the two-group tick "
+          f"differ from the card's cold replay")
+    check(drained["flush_failed"] == 0 and drained["flushed"] == FLUSH_LANES,
+          f"flush: drain {drained}")
+    check(records == FLUSH_LANES, f"flush: {records} checkpoint records")
+    check(resumed == FLUSH_LANES, f"flush: {resumed} resumed seats")
+    check(mism == 0, f"flush: {mism} re-admitted rows differ")
+    return rec
+
+
+def serve_token(w):
+    from cadence_tpu_torch.runtime.persistence.records import BranchToken
+
+    return BranchToken(tree_id=w.run_id,
+                       branch_id=f"branch-{w.run_id}").to_json().encode()
+
+
+def phase_serve_consult(np, S, unpack, loads, hists, cold, routes):
+    """(d) the rebuilder's resident-lane consult: the first 256 histories
+    of (b) in the port's history store, seated by ``admit_from_store``;
+    ``rebuild_many`` at their exact tips hits every lane and equals a
+    rebuilder without ``serving=``; a tip one event short falls through
+    to the cold path. ``SERVE_COLD_READS`` further stored workflows are
+    read without a lane: the cold read on the card."""
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        MemoryHistoryManager)
+    from cadence_tpu_torch.runtime.persistence.records import BranchToken
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+    from cadence_tpu_torch.serving import ResidentEngine
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    caps = S.Capacities(**SERVE_CAPS)
+    hist = MemoryHistoryManager()
+    n = FLUSH_LANES + SERVE_COLD_READS
+    for w, (_, _, batches) in zip(loads[:n], hists[:n]):
+        branch = BranchToken.from_json(serve_token(w).decode())
+        for txn, b in enumerate(batches, 1):
+            hist.append_history_nodes(branch, b, transaction_id=txn)
+    scope = Scope()
+    engine = routes.wrap(ResidentEngine(
+        lanes=FLUSH_LANES, caps=caps, history=hist, metrics=scope,
+        device="cuda"))
+    t0 = time.perf_counter()
+    for w in loads[:FLUSH_LANES]:
+        check(engine.admit_from_store(w.domain_id, w.workflow_id, w.run_id,
+                                      serve_token(w)) is not None,
+              "consult: admit_from_store failed")
+    admit_s = time.perf_counter() - t0
+
+    def reqs(off):
+        return [RebuildRequest(
+            domain_id=w.domain_id, workflow_id=w.workflow_id,
+            run_id=w.run_id, branch_token=serve_token(w),
+            next_event_id=b[-1][-1].event_id + 1 - off)
+            for w, (_, _, b) in zip(loads[:FLUSH_LANES], hists)]
+
+    out = {}
+    for name, off in (("exact_tip", 0), ("tip_one_off", 1)):
+        rscope = Scope()
+        t0 = time.perf_counter()
+        got = StateRebuilder(hist, serving=engine, metrics=rscope,
+                             device="cuda").rebuild_many(reqs(off))
+        wall = time.perf_counter() - t0
+        want = StateRebuilder(hist, device="cuda").rebuild_many(reqs(off))
+        out[name] = {
+            "hits": rscope.registry.counter_value(
+                "serving_resident_hits", {"layer": "serving"}),
+            "wall_s": wall,
+            "mismatches": sum(rebuild_key(unpack, g) != rebuild_key(unpack, x)
+                              for g, x in zip(got, want))}
+    # reads of stored workflows without a lane: the cold read
+    reads = [engine.read(w.workflow_id, w.run_id, domain_id=w.domain_id,
+                         branch_token=serve_token(w))
+             for w in loads[FLUSH_LANES:n]]
+    check(None not in reads and not any(r.resident for r in reads),
+          "consult: a cold read did not answer from a cold replay")
+    cold_mism = sum(not row_equal(np, S, r.state_row, r.epoch_s, c)
+                    for r, c in zip(reads, cold[FLUSH_LANES:n]))
+    rec = {"part": "serve_consult", "lanes": FLUSH_LANES,
+           "admit_from_store_s": admit_s, **out,
+           "cold_reads": SERVE_COLD_READS, "cold_read_mismatches": cold_mism,
+           "admit_failures": scope.registry.counter_value(
+               "serving_admit_failures")}
+    emit({"phase": "serving", **rec})
+    check(out["exact_tip"]["hits"] == FLUSH_LANES,
+          f"consult: {out['exact_tip']['hits']} resident hits")
+    check(out["tip_one_off"]["hits"] == 0, "consult: a tip one event off hit")
+    check(not any(v["mismatches"] for v in out.values()) and not cold_mism,
+          f"consult: results differ {out}, cold reads {cold_mism}")
+    return rec
+
+
+def phase_serving(torch, np, S, P, RC, unpack):
+    """Phase 9: the serving plane on the card, parts (a) to (d). Returns
+    (record, tick kernel timing, launches by route)."""
+    from cadence_tpu_torch.ops import assoc as A
+    from cadence_tpu_torch.ops.replay import replay_packed
+    from cadence_tpu_torch.testing import workloads as W
+
+    t_phase = time.perf_counter()
+    routes = ServeRoutes(RC)
+    a = phase_serve_continuous(torch, np, S, P, W, replay_packed, routes)
+    b, loads, hists, cold, tick_pack = phase_serve_megabatch(
+        torch, np, S, P, W, replay_packed, A.classify_types, routes)
+    c = phase_serve_flush(np, S, P, A, replay_packed, loads, cold, routes)
+    d = phase_serve_consult(np, S, unpack, loads, hists, cold, routes)
+    launches = dict(routes.counts)
+    tick_kernel = time_tick_pack(torch, np, S, RC,
+                                 S.Capacities(**SERVE_CAPS), tick_pack)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "serving", "part": "summary", "phase_s": wall,
+          "launches_by_route": launches})
+    for route in ("serving_seat", "serving_tick", "serving_cold_read"):
+        check(launches[route] > 0, f"the serving path made no {route} launch")
+    return {"a": a, "b": b, "c": c, "d": d}, tick_kernel, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1293,7 +1883,13 @@ def main() -> int:
     emit({"phase": "rebuild_kernel", "packed_route": rebuild_kernel,
           "nvidia_smi": smi})
 
-    # 9. kernels and device
+    # 9. the serving plane, launches counted by route inside the phase
+    RC.replay_rows.launches = 0
+    serving, tick_kernel, serve_launches = phase_serving(
+        torch, np, S, P, RC, unpack)
+    del serving
+
+    # 10. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -1304,7 +1900,9 @@ def main() -> int:
         "name": "replay_fsm", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/replay_fsm.cu",
         "replaces": "cadence_tpu/ops/replay_pallas.py:153",
-        "launches": launches + launches_rebuild, "max_abs_err": rand_err,
+        "launches": launches + launches_rebuild + sum(
+            serve_launches.values()),
+        "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": None,
@@ -1322,10 +1920,16 @@ def main() -> int:
         "rebuild_bound_ms": rk["int32"]["bound_ms"],
         "rebuild_bound_ms_int16": rk["int16"]["bound_ms"],
         "rebuild_shape": f"T={rk['T']} L={rk['lanes']} R_pad={rk['R_pad']}",
+        "tick_ms": tick_kernel["ms"], "tick_plain_ms": tick_kernel["plain_ms"],
+        "tick_bound_ms": tick_kernel["bound_ms"],
+        "tick_shape": f"T={tick_kernel['T']} L={tick_kernel['lanes']} "
+                      f"histories={tick_kernel['histories']} "
+                      f"R_pad={tick_kernel['R_pad']}",
         "launches_by_route": {"replay_packed": launches_packed,
                               "replay_stream[bucket]": launches_stream,
                               "replay_stream[unbucketed]": launches_hist,
-                              "rebuild_many": launches_rebuild},
+                              "rebuild_many": launches_rebuild,
+                              **serve_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",
