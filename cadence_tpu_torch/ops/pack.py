@@ -1,7 +1,9 @@
 """Pack workflow histories into dense event tensors for device replay.
 
-A copy of the reference package's packer (numpy paths only), so the port
-builds tensors equal to the reference's byte for byte. The packer is the
+A copy of the reference package's packer, so the port builds tensors
+equal to the reference's byte for byte; its dense layouts come from the
+port's C++ sidecar (``native/``) where the reference uses its own, and
+from the same numpy paths without a compiler. The packer is the
 host half of the replay-kernel contract (ops/replay_cuda.py). Like a
 tokenizer, it precomputes everything
 that is string- or hash-keyed so the device never chases pointers:
@@ -39,6 +41,7 @@ from ..core.ids import EMPTY_EVENT_ID
 from ..core.mutable_state import MutableState
 from ..utils.hashing import hash31
 
+from .. import native
 from . import schema as S
 
 SECONDS = 1_000_000_000  # ns per second
@@ -274,15 +277,25 @@ class PackedHistories:
         return self.events.shape[0]
 
     def time_major(self) -> np.ndarray:
-        """[T, B, EV_N] time-major layout."""
+        """[T, B, EV_N] time-major layout. Uses the C++ sidecar's fused
+        scatter when the packed rows are available."""
+        if self.rows_concat is not None:
+            return native.scatter_time_major(
+                self.rows_concat, self.lengths, self.caps.max_events)
         return np.ascontiguousarray(np.transpose(self.events, (1, 0, 2)))
 
     def teb(self) -> np.ndarray:
         """[T, EV_N, B] field-major — the replay kernel's operand layout
-        (ops/replay_cuda.py). Computed once: the event tensor is frozen."""
+        (ops/replay_cuda.py), scattered from the packed rows by the C++
+        sidecar when they are available, else transposed. Computed once:
+        the event tensor is frozen."""
         if self._teb is None:
-            self._teb = np.ascontiguousarray(
-                np.transpose(self.events, (1, 2, 0)))
+            if self.rows_concat is not None:
+                self._teb = native.scatter_teb(
+                    self.rows_concat, self.lengths, self.caps.max_events)
+            else:
+                self._teb = np.ascontiguousarray(
+                    np.transpose(self.events, (1, 2, 0)))
             self._teb.flags.writeable = False
         return self._teb
 
@@ -760,19 +773,6 @@ def _build_initial(
     return initial
 
 
-def _scatter_batch_major(rows: np.ndarray, lengths: np.ndarray,
-                         max_events: int) -> np.ndarray:
-    """[sum(lengths), EV_N] rows + [B] lengths → [B, T, EV_N], padding
-    rows typed -1 (the reference sidecar's numpy path)."""
-    out = np.zeros((len(lengths), max_events, S.EV_N), dtype=np.int32)
-    out[:, :, S.EV_TYPE] = -1
-    start = 0
-    for b, n in enumerate(lengths.tolist()):
-        out[b, :n, :] = rows[start : start + n]
-        start += n
-    return out
-
-
 def pack_histories(
     histories: Sequence[Tuple[str, str, Sequence[Sequence[HistoryEvent]]]],
     caps: Optional[S.Capacities] = None,
@@ -821,7 +821,10 @@ def pack_histories(
         if per_wf
         else np.zeros((0, S.EV_N), dtype=np.int32)
     )
-    events = _scatter_batch_major(rows_concat, lengths, caps.max_events)
+    # one fused pad+layout pass (the C++ sidecar when it builds) instead
+    # of a per-workflow fill loop
+    events = native.scatter_batch_major(rows_concat, lengths,
+                                        caps.max_events)
     # rows_concat is the replay source of truth (time_major reads it);
     # freeze the derived tensor so divergence-by-mutation is an error,
     # not a silent mismatch

@@ -8,7 +8,9 @@ PyTorch version, drives the replay main path at the size of the
 ``retry_deep`` deployment (65,536 histories of about 1,000 events) and
 the depth-bucketed rebuild route, and prints one JSON line per phase:
 
-1. device: the card (``nvidia-smi`` name and power limit), kernel build;
+1. device: the card (``nvidia-smi`` name and power limit), kernel build,
+   and the C++ sidecar's build (``cadence_tpu_torch/native``; the run
+   fails without it);
 2. kernel against plain on seeded random events (every event type,
    slots from -1 to past capacity, version changes, padding), at the
    default and the retry_deep capacities, int32 and int16 streams; ragged
@@ -17,11 +19,21 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    step, permuted output columns, resets into init columns);
 3. ``replay_packed`` on 65,536 tiled retry_deep histories, int32 and
    narrow, with kernel timing (CUDA events) against the memory bound,
-   and the kernel's launch geometry;
+   and the kernel's launch geometry; then the reference bench's replay
+   step on the same device-resident events, ``replay_scan_teb`` and
+   ``refresh_tasks_device`` (``ops/refresh.py``): the refresh's time,
+   launches (torch.profiler) and bound, the step's histories/s, the
+   card's refresh against the CPU's on every lane and a seeded 256
+   hydrated against the host refresher; the compiled baseline
+   (``native.replay_sequential`` on the first 256 histories, its state
+   against the kernel's, ``baseline_cpp_per_sec`` and ``vs_baseline``
+   with the host CPU's model); the sidecar's scatters at full width
+   against their numpy paths, byte for byte and timed;
 4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix,
    every snapshot against the plain route on the CPU, its FSM launches
-   (one per packed batch), its device-busy share (torch.profiler) and
-   the packed route's time per batch against its bound;
+   (one per packed batch), its device-busy share (torch.profiler), the
+   packed route's time per batch against its bound, and the refresh of
+   the deepest batch's output snapshots on the card against the CPU's;
 5. ``segscan_vs_plain`` (run right after phase 2, outside the counted
    windows): the segmented affine-scan kernel against its plain version
    on seeded random streams (L = 4,096, C = 24, T = 1,024 and 1,000;
@@ -55,8 +67,9 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    plane's ``flush`` and resumed re-admission; (d) the rebuilder's
    resident-lane consult at the exact tip and one event off, and cold
    reads of workflows without a lane;
-10. the kernel list with launch counts on the main paths, then the device
-    line.
+10. the refresh's line (``device_passes``: torch ops, no kernel of its
+    own), the kernel list with launch counts on the main paths, then the
+    device line.
 
 Any failure exits non-zero without the final line. Needs one CUDA card;
 exits non-zero without one.
@@ -83,6 +96,10 @@ N_UNIQUE = 256
 N_HISTORIES = 512 * 128
 DEPTH = 1000
 PLAIN_CHECK_LANES = 4096
+# phase 3, the replay + refresh step: a seeded sample of lanes hydrated
+# against the host refresher; the compiled baseline replays the first
+# 256 histories (bench.py's baseline=256 for retry_deep, bench.py:2383)
+REFRESH_SAMPLE, REFRESH_SEED, BASELINE_N = 256, 44, 256
 RANDOM_B, RANDOM_T = 2048, 1024
 # phase 2: ragged widths, one-step windows and the packed route
 RAGGED_BS, RAGGED_T = (2045, 2046), 256
@@ -259,12 +276,30 @@ def random_events(S, E, caps, t, b, seed, pad_frac=0.1):
     return ev
 
 
-def phase_device(torch, _build):
+def sidecar_build(native):
+    """Build and load the port's C++ sidecar; fails without it (a pack
+    that quietly took the numpy route would hide what phase 3 measures)."""
+    compiled = not native.lib_path().exists()
+    t0 = time.perf_counter()
+    lib = native._load()
+    build_s = time.perf_counter() - t0
+    check(lib is not None,
+          f"the native sidecar did not build or load: {native.load_error}")
+    res = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    return {"compiler": res.stdout.splitlines()[0] if res.stdout else "",
+            "flags": " ".join(native.CXX_FLAGS), "compiled": compiled,
+            "build_s": build_s,
+            "library": str(native.lib_path().relative_to(ROOT))}
+
+
+def phase_device(torch, _build, native):
     smi = smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
     _build.build(_build.KERNELS)
     build_s = time.perf_counter() - t0
+    sidecar = sidecar_build(native)
     for name in _build.KERNELS:
         _build.load(name)
     # ptxas's register and spill lines, one per kernel instantiation
@@ -276,7 +311,8 @@ def phase_device(torch, _build):
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernels_built": list(_build.KERNELS), "build_s": build_s})
+          "kernels_built": list(_build.KERNELS), "build_s": build_s,
+          "sidecar": sidecar})
     return smi
 
 
@@ -416,13 +452,14 @@ def retry_uniques(W, n, depth, seed):
 
 def tiled_pack(np, P, caps, n_hist):
     """Pack ``N_UNIQUE`` retry_deep histories and tile them to
-    ``n_hist`` lanes (batch-major), as the reference bench tiles."""
+    ``n_hist`` lanes (batch-major), as the reference bench tiles;
+    returns the uniques' pack and the tiled one."""
     from cadence_tpu_torch.testing import workloads as W
 
     uniq = P.pack_histories(retry_uniques(W, N_UNIQUE, DEPTH, 42),
                             caps=caps)
     reps = -(-n_hist // N_UNIQUE)
-    return P.PackedHistories(
+    return uniq, P.PackedHistories(
         events=np.tile(uniq.events, (reps, 1, 1))[:n_hist],
         lengths=np.tile(uniq.lengths, reps)[:n_hist],
         side=(uniq.side * reps)[:n_hist], caps=caps, epoch_s=uniq.epoch_s,
@@ -435,7 +472,7 @@ def phase_main_path(torch, np, S, P, RC, replay_packed):
     caps = S.Capacities(**RETRY_CAPS)
     rm = RC.RowMap(caps)
     t0 = time.perf_counter()
-    tiled = tiled_pack(np, P, caps, N_HISTORIES)
+    uniq, tiled = tiled_pack(np, P, caps, N_HISTORIES)
     teb = tiled.teb()
     pack_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -451,7 +488,7 @@ def phase_main_path(torch, np, S, P, RC, replay_packed):
         finals[stream] = replay_packed(tiled, device="cuda",
                                        narrow=stream == "int16")
         wall[stream] = time.perf_counter() - t0
-    return dict(caps=caps, rm=rm, tiled=tiled, teb=teb,
+    return dict(caps=caps, rm=rm, uniq=uniq, tiled=tiled, teb=teb,
                 narrowed=narrowed, valid=valid, finals=finals, wall=wall,
                 pack_s=pack_s, narrow_s=narrow_s)
 
@@ -520,6 +557,239 @@ def time_kernel(torch, S, RC, m):
                            plan=RC.kernel_plan(evd, caps, base, wide))
         del evd
         torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 3, continued: the replay + refresh step, the compiled
+# baseline and the sidecar's scatter ------------------------------------
+
+
+def refresh_bound(state, refreshed):
+    """Least time for the refresh: the six state tables it reads read
+    once and every output written once, against its integer work (about
+    20 operations a candidate of every activity slot and kind, 10 a
+    timer slot, 3 a child, cancel and signal slot, 30 for the rest: a
+    count from ops/refresh.py)."""
+    read = sum(getattr(state, f).numel() * getattr(state, f).element_size()
+               for f in ("exec_info", "activities", "timers", "children",
+                         "cancels", "signals"))
+    written = sum(x.numel() * x.element_size() for x in (
+        getattr(refreshed, f.name) for f in dataclasses.fields(refreshed)))
+    b, a = state.activities.shape[:2]
+    ops = b * (20 * 5 * a + 10 * state.timers.shape[1] + 3 * (
+        state.children.shape[1] + state.cancels.shape[1]
+        + state.signals.shape[1]) + 30)
+    t_bytes = (read + written) / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    return dict(bytes_read=read, bytes_written=written, ops=ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def refresh_on_card(torch, S, R, final):
+    """The refresh of a device-resident ``final`` on the card: the median
+    of 21 CUDA-event timings, its device launches (torch.profiler), its
+    bound, and every field against the same refresh on the CPU."""
+    got = R.refresh_tasks_device(final)
+    torch.cuda.synchronize()
+    want = R.refresh_tasks_device(final.map(lambda x: x.cpu()))
+    diverged = [f for f in R.FIELDS
+                if getattr(got, f).dtype != getattr(want, f).dtype
+                or not torch.equal(getattr(got, f).cpu(), getattr(want, f))]
+    each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(final)))
+    prof = device_busy(torch, lambda: R.refresh_tasks_device(final))
+    rec = dict(lanes=final.exec_info.shape[0], ms=each[len(each) // 2],
+               ms_min=each[0], ms_max=each[-1],
+               launches=prof["device_activities"],
+               launch_names=prof["top_ms"], fields_diverged=diverged,
+               dtypes={f: str(getattr(got, f).dtype).replace("torch.", "")
+                       for f in R.FIELDS},
+               **refresh_bound(final, got))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    return got, rec
+
+
+def phase_refresh_step(torch, np, S, RC, R, unpack, m):
+    """bench.py's unpacked replay step at full width, device-resident:
+    ``replay_scan_teb`` then ``refresh_tasks_device``. The card's refresh
+    against the CPU's on every lane; a seeded sample hydrated against
+    the host refresher on the rehydrated rows."""
+    from cadence_tpu_torch.core.task_refresher import refresh_tasks
+
+    caps, tiled = m["caps"], m["tiled"]
+    n = tiled.batch
+    evd = S.host_tensor(m["teb"]).cuda()
+    state0 = S.state_from_numpy(S.empty_state(n, caps), "cuda")
+    final = RC.replay_scan_teb(state0, evd, caps)
+    torch.cuda.synchronize()
+    host = S.state_to_numpy(final)
+    check(all(np.array_equal(getattr(host, f),
+                             getattr(m["finals"]["int32"], f))
+              for f in S.STATE_ROW_FIELDS),
+          "replay_scan_teb differs from replay_packed's final")
+    refreshed, rec = refresh_on_card(torch, S, R, final)
+    check(not rec["fields_diverged"],
+          f"card refresh differs from the CPU's: {rec['fields_diverged']}")
+
+    def step():
+        return R.refresh_tasks_device(RC.replay_scan_teb(state0, evd, caps))
+    step_each = sorted(cuda_ms_each(step, reps=11))
+    step_ms = step_each[len(step_each) // 2]
+
+    t0 = time.perf_counter()
+    tasks = R.refreshed_to_numpy(refreshed)
+    d2h_s = time.perf_counter() - t0
+    sample = sorted(random.Random(REFRESH_SEED).sample(
+        range(n), min(REFRESH_SAMPLE, n)))
+    mism, n_tasks = 0, 0
+    for b in sample:
+        got = R.hydrate_tasks(tasks, b, tiled, domain_id="dom")
+        ms = unpack.state_row_to_mutable_state(
+            host, b, tiled.side[b], domain_id="dom", epoch_s=tiled.epoch_s)
+        want = refresh_tasks(ms)
+        n_tasks += len(got[0]) + len(got[1])
+        mism += [task_rows(x) for x in got] != [task_rows(x) for x in want]
+    del evd, state0, final
+    torch.cuda.empty_cache()
+    rec.update(step_ms=step_ms, step_ms_min=step_each[0],
+               step_ms_max=step_each[-1],
+               histories_per_sec=n / (step_ms * 1e-3),
+               refreshed_to_numpy_s=d2h_s, hydrate_sample=len(sample),
+               hydrate_tasks=n_tasks, hydrate_mismatches=mism)
+    check(mism == 0, f"{mism} hydrated lanes differ from the host refresher")
+    return rec
+
+
+def cpu_model() -> dict:
+    """The host CPU as ``lscpu`` and ``/proc/cpuinfo`` name it, and the
+    cores this process may use."""
+    import os
+
+    res = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60)
+    keys = ("Model name", "Vendor ID", "CPU(s)", "Thread(s) per core",
+            "CPU max MHz")
+    lscpu = {k: v.strip() for k, _, v in (
+        ln.partition(":") for ln in res.stdout.splitlines())
+        if k.strip() in keys}
+    try:
+        info = Path("/proc/cpuinfo").read_text()
+        model = next((ln.split(":", 1)[1].strip()
+                      for ln in info.splitlines()
+                      if ln.startswith("model name")), "")
+    except OSError:
+        model = ""
+    return {"lscpu": lscpu, "cpuinfo_model": model,
+            "cores_usable": len(os.sched_getaffinity(0))}
+
+
+def phase_baseline(np, S, P, native, m, step_rate):
+    """The compiled sequential replayer on the first ``BASELINE_N``
+    histories for at least 0.5 s (bench.py:412-438), its state against
+    the kernel's rows for those lanes."""
+    tiled = m["tiled"]
+    nb = min(BASELINE_N, tiled.batch)
+    sub = P.PackedHistories(events=tiled.events[:nb],
+                            lengths=tiled.lengths[:nb],
+                            side=tiled.side[:nb], caps=m["caps"],
+                            epoch_s=tiled.epoch_s)
+    state = native.replay_sequential(sub)
+    want = m["finals"]["int32"]
+    diverged = [f for f in S.STATE_ROW_FIELDS
+                if not np.array_equal(getattr(state, f),
+                                      getattr(want, f)[:nb])]
+    check(not diverged, f"replay_sequential differs from the kernel on "
+          f"the first {nb} lanes: {diverged}")
+    t0 = time.perf_counter()
+    reps = 0
+    while time.perf_counter() - t0 < 0.5:
+        native.replay_sequential(sub)
+        reps += 1
+    cpp_s = (time.perf_counter() - t0) / reps
+    cpp_rate = nb / cpp_s
+    return dict(histories=nb, reps=reps, s_per_rep=cpp_s,
+                baseline_cpp_per_sec=cpp_rate,
+                vs_baseline=step_rate / cpp_rate,
+                host_cpu=cpu_model(), fields_diverged=diverged)
+
+
+def phase_scatter(np, P, native, m):
+    """The sidecar's scatters at full width from the tiled pack's rows
+    (the uniques' ``rows_concat`` tiled as their events are), against
+    their numpy paths, byte for byte: ``teb()`` and the batch-major
+    ``events``."""
+    tiled, uniq = m["tiled"], m["uniq"]
+    reps = tiled.batch // uniq.batch
+    check(reps * uniq.batch == tiled.batch,
+          "the tiled pack is not whole copies of the uniques")
+    t0 = time.perf_counter()
+    rows = np.tile(uniq.rows_concat, (reps, 1))
+    tile_s = time.perf_counter() - t0
+    T = m["caps"].max_events
+    rec = dict(histories=tiled.batch, rows=int(rows.shape[0]),
+               rows_bytes=rows.nbytes, tile_rows_s=tile_s,
+               library=native.HAVE_NATIVE)
+    check(native.HAVE_NATIVE, "the sidecar is not loaded")
+    with_rows = P.PackedHistories(
+        events=tiled.events, lengths=tiled.lengths, side=tiled.side,
+        caps=m["caps"], epoch_s=tiled.epoch_s, rows_concat=rows)
+    t0 = time.perf_counter()
+    got = with_rows.teb()
+    rec["teb_native_s"] = time.perf_counter() - t0
+    rec["teb_equal_main_path"] = got.tobytes() == m["teb"].tobytes()
+    del with_rows
+    t0 = time.perf_counter()
+    want = native.scatter_teb(rows, tiled.lengths, T, force_python=True)
+    rec["teb_numpy_s"] = time.perf_counter() - t0
+    rec["teb_equal"] = got.tobytes() == want.tobytes()
+    del got, want
+    for label, fp in (("native", False), ("numpy", True)):
+        t0 = time.perf_counter()
+        ev = native.scatter_batch_major(rows, tiled.lengths, T,
+                                        force_python=fp)
+        rec[f"batch_major_{label}_s"] = time.perf_counter() - t0
+        rec[f"batch_major_{label}_equal"] = (
+            ev.tobytes() == tiled.events.tobytes())
+        del ev
+    rec["bytes_out"] = int(tiled.events.nbytes)
+    check(rec["teb_equal"] and rec["teb_equal_main_path"]
+          and rec["batch_major_native_equal"]
+          and rec["batch_major_numpy_equal"],
+          f"sidecar scatter differs from the numpy path: {rec}")
+    return rec
+
+
+def stream_refresh(torch, np, S, RC, R, caps, results):
+    """bench.py's packed replay step (bench.py:348-356) at the stream's
+    deepest batch: ``replay_scan_packed`` then ``refresh_tasks_device`` on
+    its output snapshots, against the CPU and the stream's own rows."""
+    _, packed, want = max(results,
+                          key=lambda r: r[1].scan_len * r[1].lanes)
+    evd = S.host_tensor(packed.teb()).cuda()
+    state0 = S.state_from_numpy(packed.lane_state0(), "cuda")
+    out0 = S.state_from_numpy(S.empty_state(packed.n_histories, caps),
+                              "cuda")
+
+    def replay():
+        return RC.replay_scan_packed(state0, out0, evd, packed.seg_end,
+                                     packed.out_row, caps)[1]
+    out = replay()
+    host = S.state_to_numpy(out)
+    check(all(np.array_equal(getattr(host, f), getattr(want, f))
+              for f in S.STATE_ROW_FIELDS),
+          "the packed step's snapshots differ from the stream's")
+    _, rec = refresh_on_card(torch, S, R, out)
+    check(not rec["fields_diverged"], "card refresh differs from the "
+          f"CPU's at the stream batch: {rec['fields_diverged']}")
+    each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(replay()),
+                               reps=11))
+    rec.update(T=packed.scan_len, packed_lanes=packed.lanes,
+               step_ms=each[len(each) // 2], step_ms_min=each[0],
+               step_ms_max=each[-1],
+               histories_per_sec=packed.n_histories / (
+                   each[len(each) // 2] * 1e-3))
+    del evd, state0, out0, out
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1688,10 +1958,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from cadence_tpu_torch.core.enums import EventType as E
+    from cadence_tpu_torch import native
     from cadence_tpu_torch.ops import _build
     from cadence_tpu_torch.ops import assoc as A
     from cadence_tpu_torch.ops import assoc_cuda as AC
     from cadence_tpu_torch.ops import pack as P
+    from cadence_tpu_torch.ops import refresh as R
     from cadence_tpu_torch.ops import replay_cuda as RC
     from cadence_tpu_torch.ops import schema as S
     from cadence_tpu_torch.ops import unpack
@@ -1700,7 +1972,7 @@ def main() -> int:
     from cadence_tpu_torch.testing import workloads as W
 
     # 1. device and build
-    smi = phase_device(torch, _build)
+    smi = phase_device(torch, _build, native)
 
     # 2. kernel against plain on random events
     rand_err = phase_kernel_vs_plain(torch, np, S, E, RC)
@@ -1747,6 +2019,17 @@ def main() -> int:
                      for s, r in timing.items()},
           "nvidia_smi": smi})
 
+    # 3, continued, outside the counted window: the replay + refresh step
+    # on the card, the compiled baseline, the sidecar's scatter
+    step = phase_refresh_step(torch, np, S, RC, R, unpack, m)
+    baseline = phase_baseline(np, S, P, native, m,
+                              step["histories_per_sec"])
+    emit({"phase": "replay_refresh_step", "config": "retry_deep",
+          "histories": n, "refresh": step, "baseline": baseline,
+          "nvidia_smi": smi})
+    emit({"phase": "sidecar_scatter", **phase_scatter(np, P, native, m),
+          "nvidia_smi": smi})
+
     # 4. the bucketed stream against the plain route
     t0 = time.perf_counter()
     plain_res = replay_stream(mixed, caps=caps, bucket=True, device="cpu")
@@ -1766,6 +2049,7 @@ def main() -> int:
     busy = device_busy(torch, lambda: replay_stream(
         mixed, caps=caps, bucket=True, device="cuda"))
     packed_timing = time_packed(torch, np, S, RC, caps, stream_res)
+    stream_step = stream_refresh(torch, np, S, RC, R, caps, stream_res)
     emit({"phase": "stream", "route": "replay_stream(bucket=True)",
           "histories": len(mixed), "shallow": N_SHALLOW, "deep": N_DEEP,
           "batches": len(stream_res), "gen_s": gen_s,
@@ -1773,7 +2057,7 @@ def main() -> int:
           "histories_per_s": len(mixed) / stream_wall,
           "host_pack_only_s": pack_only, "plain_cpu_wall_s": plain_wall,
           "fsm_launches": launches_stream, "device_busy": busy,
-          "packed_route": packed_timing,
+          "packed_route": packed_timing, "replay_refresh_step": stream_step,
           "snapshot_mismatches": mism,
           "unbucketed": {"batch_size": 1024, "batches": len(hist_res),
                          "wall_s": hist_wall, "fsm_launches": launches_hist,
@@ -1941,6 +2225,15 @@ def main() -> int:
         "bound_by": seg_timing["bound_by"], "library_ms": None,
         "shape": seg_timing["shape"],
     }]
+    emit({"device_passes": [{
+        "name": "refresh_tasks_device", "route": "torch ops",
+        "source": "cadence_tpu_torch/ops/refresh.py",
+        "replaces": "cadence_tpu/ops/refresh.py:79",
+        **{k: step[k] for k in ("lanes", "launches", "ms", "bound_ms",
+                                "bound_by", "step_ms", "histories_per_sec")},
+        "stream": {k: stream_step[k] for k in (
+            "lanes", "launches", "ms", "bound_ms", "bound_by", "step_ms")},
+    }]})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

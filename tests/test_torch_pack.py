@@ -200,8 +200,9 @@ def test_schema_constants_match_kernel_source():
 
 def test_import_hygiene():
     """Importing the port, the parallel-in-time replay and its scan
-    kernel's wrapper, the rebuilder, the checkpoint plane and the serving
-    plane included, loads neither jax nor the reference package."""
+    kernel's wrapper, the rebuilder, the checkpoint plane, the serving
+    plane, the device task refresh and the native sidecar included,
+    loads neither jax nor the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -213,6 +214,7 @@ def test_import_hygiene():
         "import cadence_tpu_torch.runtime.replication.rebuilder\n"
         "import cadence_tpu_torch.checkpoint\n"
         "import cadence_tpu_torch.serving, cadence_tpu_torch.utils.quotas\n"
+        "import cadence_tpu_torch.ops.refresh, cadence_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
