@@ -84,11 +84,11 @@ def type_signature(present) -> tuple:
     return tuple(sorted(out))
 
 
-def check_scan_mode(scan_mode: str) -> None:
-    """Reject unknown ``scan_mode`` strings up front."""
-    if scan_mode not in SCAN_MODES:
+def check_scan_mode(scan_mode: str, allowed=SCAN_MODES) -> None:
+    """Reject ``scan_mode`` strings outside ``allowed`` up front."""
+    if scan_mode not in allowed:
         raise ValueError(
-            f"scan_mode must be one of {'/'.join(SCAN_MODES)} "
+            f"scan_mode must be one of {'/'.join(allowed)} "
             f"(got {scan_mode!r})")
 
 

@@ -67,7 +67,19 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    plane's ``flush`` and resumed re-admission; (d) the rebuilder's
    resident-lane consult at the exact tip and one event off, and cold
    reads of workflows without a lane;
-10. the refresh's line (``device_passes``: torch ops, no kernel of its
+10. ``parallel``: the process-group fabric (``cadence_tpu_torch/parallel``,
+    ``cadence_tpu_torch/entry.py``): (a) the sharded step in scan mode
+    and the NDC exchange through NCCL at world size 1, in this process,
+    on phase 3's 65,536 lanes, bit-equal to phase 3's step; (b) a 2 x 2
+    mesh of 4 gloo ranks on cuda:0: the sharded step in scan mode at
+    65,536 lanes with the gather of the whole batch, the exchange, the
+    pipelined replay (512 steps a stage, 2 and 4 micro-batches), the
+    sharded step in assoc mode at 16,384 lanes, every result against the
+    single-process FSM route; (c) ``entry(device="cuda")``'s forward
+    against the CPU's, and ``dryrun_multichip(4)`` over gloo on the card.
+    One card: several ranks time-slice it, so these are the code path's
+    and the collectives' times, not scaling;
+11. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -1945,6 +1957,244 @@ def phase_serving(torch, np, S, P, RC, unpack):
     return {"a": a, "b": b, "c": c, "d": d}, tick_kernel, launches
 
 
+# -- phase 10: the process-group fabric (cadence_tpu_torch/parallel) ----
+
+# (b): a 2 x 2 gloo mesh of 4 ranks on cuda:0, the pipeline at these
+# micro-batch counts; every rank call of run_ranks within this deadline
+PARALLEL_RANKS, PARALLEL_MICROS, PARALLEL_REPS = 4, (2, 4), 5
+PARALLEL_TIMEOUT_S = 300
+
+
+def ref_digests(S, R, PW, final, tasks, lanes):
+    """field_digests of the reference's ``lanes``: ``final`` numpy state,
+    ``tasks`` numpy RefreshedTasks or None."""
+    arrays = {f: getattr(final, f)[lanes] for f in S.STATE_ROW_FIELDS}
+    if tasks is not None:
+        arrays.update({f: getattr(tasks, f)[lanes] for f in R.FIELDS})
+    return PW.field_digests(arrays)
+
+
+def phase_parallel_nccl(torch, np, S, RC, R, m, phase3_step):
+    """(a) ``replay_sharded_fn`` in scan mode and ``ndc_snapshot_exchange``
+    through NCCL at world size 1, in this process, on phase 3's 65,536
+    lanes, device-resident. Returns (record, the single-process step's
+    refresh as numpy, FSM launches)."""
+    import torch.distributed as dist
+    from cadence_tpu_torch.parallel import (
+        make_mesh, ndc_snapshot_exchange, replay_sharded_fn)
+    from cadence_tpu_torch.parallel.replay_sharded import _DIGEST_COLS
+
+    caps, n = m["caps"], m["tiled"].batch
+    evd = S.host_tensor(m["teb"]).cuda()
+    state0 = S.state_from_numpy(S.empty_state(n, caps), "cuda")
+    ref = RC.replay_scan_teb(state0, evd, caps)
+    ref_tasks = R.refresh_tasks_device(ref)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(seq=1)
+        init_s = time.perf_counter() - t0
+        step = replay_sharded_fn(mesh, "scan")
+        RC.replay_rows.launches = 0
+        final, tasks = step(state0, evd)
+        torch.cuda.synchronize()
+        launches = RC.replay_rows.launches
+        diverged = [f for f in S.STATE_ROW_FIELDS
+                    if not torch.equal(getattr(final, f), getattr(ref, f))]
+        diverged += [f for f in R.FIELDS
+                     if getattr(tasks, f).dtype != getattr(ref_tasks, f).dtype
+                     or not torch.equal(getattr(tasks, f),
+                                        getattr(ref_tasks, f))]
+        host = S.state_to_numpy(final)
+        vs_phase3 = [f for f in S.STATE_ROW_FIELDS
+                     if not np.array_equal(getattr(host, f),
+                                           getattr(m["finals"]["int32"], f))]
+        # the sharded step and the single-process step in turns
+        # (single, sharded, sharded, single), 11 CUDA-event timings each
+        fns = {"single": lambda: R.refresh_tasks_device(
+                   RC.replay_scan_teb(state0, evd, caps)),
+               "sharded": lambda: step(state0, evd)}
+        turns = {"single": [], "sharded": []}
+        for name in ("single", "sharded", "sharded", "single"):
+            turns[name] += cuda_ms_each(fns[name], reps=11)
+        each, single = sorted(turns["sharded"]), sorted(turns["single"])
+        dig, vh, vh_len, replayed, max_version = ex = ndc_snapshot_exchange(
+            final, mesh)
+        ex_ok = {
+            "digests": torch.equal(dig, torch.stack(
+                [final.exec_info[:, c] for c in _DIGEST_COLS], dim=-1)),
+            "vh_items": torch.equal(vh, final.vh_items),
+            "vh_len": torch.equal(vh_len, final.vh_len),
+            "replayed": int(replayed) == n,
+            "max_version": int(max_version) == int(
+                final.exec_info[:, S.X_CUR_VERSION].max()),
+            "dtypes": all(x.dtype == torch.int32 for x in ex)}
+        ex_each = sorted(cuda_ms_each(
+            lambda: ndc_snapshot_exchange(final, mesh), reps=11))
+    finally:
+        dist.destroy_process_group()
+    tasks_np = R.refreshed_to_numpy(ref_tasks)
+    del evd, state0, ref, ref_tasks, final, tasks, ex, dig, vh, vh_len
+    torch.cuda.empty_cache()
+    rec = {"backend": "nccl", "world": 1, "mesh": dict(mesh.shape),
+           "lanes": n, "T": caps.max_events,
+           "R_pad": RC.RowMap(caps).rows_padded, "init_s": init_s,
+           "launches": launches, "step_ms": each[len(each) // 2],
+           "step_ms_min": each[0], "step_ms_max": each[-1],
+           "single_step_ms": single[len(single) // 2],
+           "single_step_ms_min": single[0],
+           "single_step_ms_max": single[-1],
+           "phase3_step_ms": phase3_step["step_ms"],
+           "fields_diverged": diverged, "vs_phase3_diverged": vs_phase3,
+           "exchange_ms": ex_each[len(ex_each) // 2],
+           "exchange_ms_min": ex_each[0], "exchange_ms_max": ex_each[-1],
+           "exchange_checks": ex_ok, "replayed": int(replayed)}
+    check(not diverged, f"sharded step differs from the single-process "
+          f"step: {diverged}")
+    check(not vs_phase3, f"sharded step differs from phase 3: {vs_phase3}")
+    check(all(ex_ok.values()), f"NCCL exchange: {ex_ok}")
+    return rec, tasks_np, launches
+
+
+def phase_parallel_gloo(np, S, R, m, ref_tasks):
+    """(b) the sharded step (scan, then assoc), the exchange and the
+    pipeline on a 2 x 2 gloo mesh of 4 ranks, all on cuda:0; every
+    rank's results held against the single-process FSM route's on the
+    same lanes (phase 3's final, (a)'s refresh) by their digests."""
+    from cadence_tpu_torch.parallel.launch import run_ranks
+    from cadence_tpu_torch.parallel.replay_sharded import _DIGEST_COLS
+    from cadence_tpu_torch.testing import parallel_workers as PW
+
+    n, ref = m["tiled"].batch, m["finals"]["int32"]
+    t0 = time.perf_counter()
+    recs = run_ranks(PW.smoke_mesh, PARALLEL_RANKS, backend="gloo",
+                     device="cuda", timeout_s=PARALLEL_TIMEOUT_S,
+                     args=(m["uniq"].teb(), RETRY_CAPS, n, ASSOC_HISTORIES,
+                           PARALLEL_MICROS, PARALLEL_REPS))
+    wall = time.perf_counter() - t0
+    n_shard = recs[0]["shape"]["shard"]
+    full = ref_digests(S, R, PW, ref, ref_tasks, slice(None))
+    full_a = ref_digests(S, R, PW, ref, ref_tasks, slice(0, ASSOC_HISTORIES))
+    want_ex = PW.field_digests({
+        "digests": ref.exec_info[:, list(_DIGEST_COLS)],
+        "vh_items": ref.vh_items, "vh_len": ref.vh_len})
+    max_version = int(ref.exec_info[:, S.X_CUR_VERSION].max())
+    bad = []
+    for r in recs:
+        i = r["shard_index"]
+        blk = slice(i * n // n_shard, (i + 1) * n // n_shard)
+        blk_a = slice(i * ASSOC_HISTORIES // n_shard,
+                      (i + 1) * ASSOC_HISTORIES // n_shard)
+        want = ref_digests(S, R, PW, ref, ref_tasks, blk)
+        want_state = ref_digests(S, R, PW, ref, None, blk)
+        cases = {
+            "scan_local": r["scan"]["local"] == want,
+            "scan_gathered": r["scan"]["full"] == full,
+            "exchange": r["exchange"]["digests"] == want_ex
+            and r["exchange"]["replayed"] == n
+            and r["exchange"]["max_version"] == max_version
+            and set(r["exchange"]["dtypes"]) == {"torch.int32"},
+            "assoc_local": r["assoc"]["local"] == ref_digests(
+                S, R, PW, ref, ref_tasks, blk_a),
+            "assoc_gathered": r["assoc"]["full"] == full_a,
+            "assoc_launches": r["assoc"]["launches"] == 0
+            and r["assoc"]["segscan_launches"] == 0}
+        for k, p in r["pipeline"].items():
+            cases[f"pipeline[{k}]"] = p["local"] == want_state
+        bad += [f"rank {r['rank']}: {c}" for c, ok in cases.items() if not ok]
+    digests = ("local", "full", "digests")
+    per_rank = [{
+        "rank": r["rank"], "shard": r["shard_index"], "seq": r["seq_index"],
+        "staged_bytes": r["staged_bytes"],
+        **{part: {k: v for k, v in r[part].items() if k not in digests}
+           for part in ("scan", "exchange", "assoc")},
+        "pipeline": {n_micro: {k: v for k, v in p.items()
+                               if k not in digests}
+                     for n_micro, p in r["pipeline"].items()}}
+        for r in recs]
+    launches = {
+        "parallel[gloo_scan]": sum(r["scan"]["launches"] for r in recs),
+        "parallel[pipeline]": sum(p["launches"] for r in recs
+                                  for p in r["pipeline"].values())}
+    rec = {"backend": "gloo", "world": PARALLEL_RANKS, "device": "cuda:0",
+           "mesh": recs[0]["shape"], "lanes_scan": n,
+           "lanes_assoc": ASSOC_HISTORIES,
+           "cut": f"assoc at {ASSOC_HISTORIES} lanes in total (phase 6's "
+                  "width), so four ranks share the card's memory",
+           "micro_batches": list(PARALLEL_MICROS),
+           "bubble": {k: k / (k + recs[0]["shape"]["seq"] - 1)
+                      for k in PARALLEL_MICROS},
+           "run_ranks_wall_s": wall, "per_rank": per_rank,
+           "staged_bytes": sum(r["staged_bytes"] for r in recs),
+           "launches": launches, "mismatches": bad}
+    check(not bad, f"gloo mesh results differ from the FSM route: {bad}")
+    return rec, launches
+
+
+def phase_parallel_entry(torch, np, S, R, RC):
+    """(c) the entry twin: ``entry(device="cuda")``'s forward against
+    ``device="cpu"``, then ``dryrun_multichip(4)`` over gloo on the
+    card."""
+    from cadence_tpu_torch.entry import dryrun_multichip, entry
+
+    fwd, args = entry(device="cuda")
+    RC.replay_rows.launches = 0
+    final, tasks = fwd(*args)
+    torch.cuda.synchronize()
+    launches = RC.replay_rows.launches
+    fwd_c, args_c = entry(device="cpu")
+    final_c, tasks_c = fwd_c(*args_c)
+    diverged = [f for f in S.STATE_ROW_FIELDS
+                if not torch.equal(getattr(final, f).cpu(),
+                                   getattr(final_c, f))]
+    diverged += [f for f in R.FIELDS
+                 if getattr(tasks, f).dtype != getattr(tasks_c, f).dtype
+                 or not torch.equal(getattr(tasks, f).cpu(),
+                                    getattr(tasks_c, f))]
+    t0 = time.perf_counter()
+    recs = dryrun_multichip(PARALLEL_RANKS, device="cuda", backend="gloo",
+                            timeout_s=PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    dry_launches = sum(r["launches"] for r in recs)
+    check(not diverged, f"entry forward on the card differs from the "
+          f"CPU's: {diverged}")
+    check(all(r["pipelined"] and r["replayed"] == r["batch"] for r in recs),
+          f"dry run records: {recs}")
+    rec = {"entry_workflows": int(final.exec_info.shape[0]),
+           "entry_launches": launches, "entry_fields_diverged": diverged,
+           "dryrun": {"ranks": PARALLEL_RANKS, "backend": "gloo",
+                      "device": "cuda:0", "mesh": recs[0]["mesh"],
+                      "batch": recs[0]["batch"], "wall_s": wall,
+                      "launches": dry_launches,
+                      "staged_bytes": sum(r["staged_bytes"] for r in recs)}}
+    return rec, {"parallel[entry]": launches,
+                 "parallel[dryrun]": dry_launches}
+
+
+def phase_parallel(torch, np, S, RC, R, m, phase3_step, smi):
+    """Phase 10: (a) NCCL at world size 1, (b) a 2 x 2 gloo mesh on the
+    card, (c) the entry twin. Returns FSM launches by route."""
+    t_phase = time.perf_counter()
+    a, ref_tasks, nccl_launches = phase_parallel_nccl(
+        torch, np, S, RC, R, m, phase3_step)
+    emit({"phase": "parallel", "part": "nccl_world1", **a,
+          "nvidia_smi": smi})
+    b, gloo_launches = phase_parallel_gloo(np, S, R, m, ref_tasks)
+    emit({"phase": "parallel", "part": "gloo_mesh", **b, "nvidia_smi": smi})
+    c, entry_launches = phase_parallel_entry(torch, np, S, R, RC)
+    emit({"phase": "parallel", "part": "entry", **c, "nvidia_smi": smi})
+    launches = {"parallel[nccl_scan]": nccl_launches, **gloo_launches,
+                **entry_launches}
+    emit({"phase": "parallel", "part": "summary",
+          "phase_s": time.perf_counter() - t_phase,
+          "launches_by_route": launches})
+    for route, k in launches.items():
+        check(k > 0, f"the parallel path made no {route} launch")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2173,7 +2423,11 @@ def main() -> int:
         torch, np, S, P, RC, unpack)
     del serving
 
-    # 10. kernels and device
+    # 10. the process-group fabric, launches counted by route inside the
+    # phase
+    parallel_launches = phase_parallel(torch, np, S, RC, R, m, step, smi)
+
+    # 11. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -2185,7 +2439,7 @@ def main() -> int:
         "source": "cadence_tpu_torch/ops/csrc/replay_fsm.cu",
         "replaces": "cadence_tpu/ops/replay_pallas.py:153",
         "launches": launches + launches_rebuild + sum(
-            serve_launches.values()),
+            serve_launches.values()) + sum(parallel_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -2213,7 +2467,7 @@ def main() -> int:
                               "replay_stream[bucket]": launches_stream,
                               "replay_stream[unbucketed]": launches_hist,
                               "rebuild_many": launches_rebuild,
-                              **serve_launches},
+                              **serve_launches, **parallel_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

@@ -215,6 +215,7 @@ def test_import_hygiene():
         "import cadence_tpu_torch.checkpoint\n"
         "import cadence_tpu_torch.serving, cadence_tpu_torch.utils.quotas\n"
         "import cadence_tpu_torch.ops.refresh, cadence_tpu_torch.native\n"
+        "import cadence_tpu_torch.parallel, cadence_tpu_torch.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
