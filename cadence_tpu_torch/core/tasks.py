@@ -1,4 +1,4 @@
-"""Transfer and timer task records.
+"""Transfer, timer and replication task records.
 
 Model of the reference's persistence.Task hierarchy
 (Cadence common/persistence/dataInterfaces.go:409+ — DecisionTask,
@@ -6,8 +6,9 @@ ActivityTask, CloseExecutionTask, CancelExecutionTask, SignalExecutionTask,
 StartChildExecutionTask, RecordWorkflowStartedTask, Upsert...Task and the
 timer family DecisionTimeoutTask/ActivityTimeoutTask/UserTimerTask/
 WorkflowTimeoutTask/DeleteHistoryEventTask/ActivityRetryTimerTask/
-WorkflowBackoffTimerTask). The replication task waits for the port of
-the replication plane.
+WorkflowBackoffTimerTask, HistoryReplicationTask). The history host's
+transactions emit replication tasks; the replication plane that ships
+them waits for a later slice of the port.
 
 These are host-side queue work items; after a rebuild the task refresher
 (``core/task_refresher.py``) regenerates them from the final state. A copy
@@ -136,3 +137,20 @@ def signal_external_transfer_task(
         target_child_workflow_only=child_workflow_only,
         initiated_id=initiated_id,
     )
+
+
+@dataclasses.dataclass
+class ReplicationTask:
+    """History replication task (reference: ReplicationTaskInfo)."""
+
+    domain_id: str = ""
+    workflow_id: str = ""
+    run_id: str = ""
+    task_id: int = 0
+    first_event_id: int = 0
+    next_event_id: int = 0
+    version: int = 0
+    scheduled_id: int = 0
+    branch_token: bytes = b""
+    new_run_branch_token: bytes = b""
+    reset_workflow: bool = False

@@ -1,2 +1,3 @@
-"""Runtime services the rebuild path needs: the history store and the
-state rebuilder."""
+"""Runtime services: the history host (service, shard controller, history
+engine, transfer and timer queues, domains, membership), the persistence
+stores and the state rebuilder."""

@@ -1,1 +1,2 @@
-"""Stable string hashing."""
+"""Host utilities: hashing, clocks, metrics and tracing, logging, lock
+constructors, retry and backoff, quotas, dynamic config and cron."""

@@ -1,12 +1,14 @@
 """Activity retry-policy interval math and the pump loops' backoff ladder.
 
-A copy of two parts of the reference package's ``utils/backoff.py``: the
-interval math ``MutableState.retry_activity`` uses (given a retry policy
-and the attempt that just failed, when does the next attempt start, and
-does the error or the expiration stop retrying; Cadence
-service/history/retry.go, getBackoffInterval), and ``BackoffLadder``, the
-error backoff of the serving tick pump. The host-operation retry loop of
-that module is not needed here.
+A copy of three parts of the reference package's ``utils/backoff.py``:
+the retry-policy validation the history host applies to a start request
+and to a ScheduleActivityTask decision, the interval math
+``MutableState.retry_activity`` and the cron/retry continuation use
+(given a retry policy and the attempt that just failed, when does the
+next attempt start, and does the error or the expiration stop retrying;
+Cadence service/history/retry.go, getBackoffInterval), and
+``BackoffLadder``, the error backoff of the serving tick pump. The
+host-operation retry loop of that module is not needed here.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ NO_INTERVAL = -1  # stop retrying
 
 @dataclasses.dataclass
 class RetryPolicy:
-    """Workflow/activity retry policy (reference idl RetryPolicy)."""
+    """Workflow/activity retry policy (reference idl RetryPolicy;
+    validation mirrors common/util.go ValidateRetryPolicy)."""
 
     initial_interval_seconds: int = 1
     backoff_coefficient: float = 2.0
@@ -30,6 +33,56 @@ class RetryPolicy:
     maximum_attempts: int = 0              # 0 = unlimited
     expiration_seconds: int = 0            # 0 = no expiry
     non_retriable_errors: Sequence[str] = ()
+
+    def validate(self) -> None:
+        validate_retry_policy(self)
+
+
+def validate_retry_policy(policy) -> None:
+    """Reject malformed user retry policies before they reach the FSM.
+
+    Mirrors ValidateRetryPolicy (Cadence common/util.go:357-384);
+    raises ValueError (callers map to BadRequest / decision failure).
+    A None policy is valid (no retry). Accepts either retry-policy
+    shape (core.events.RetryPolicy uses expiration_interval_seconds,
+    this module's uses expiration_seconds)."""
+    if policy is None:
+        return
+    # wire-decoded policies can carry explicit nulls; treat them as the
+    # reference's thrift Get* accessors do (nil -> zero value) so they
+    # fail validation as BadRequest, not as a server-side TypeError
+    def _n(v):
+        return 0 if v is None else v
+
+    initial = _n(policy.initial_interval_seconds)
+    coefficient = _n(policy.backoff_coefficient)
+    max_interval = _n(policy.maximum_interval_seconds)
+    max_attempts = _n(policy.maximum_attempts)
+    expiration = _n(getattr(policy, "expiration_interval_seconds",
+                            getattr(policy, "expiration_seconds", 0)))
+    if initial <= 0:
+        raise ValueError(
+            "InitialIntervalInSeconds must be greater than 0 on retry policy")
+    if coefficient < 1:
+        raise ValueError(
+            "BackoffCoefficient cannot be less than 1 on retry policy")
+    if max_interval < 0:
+        raise ValueError(
+            "MaximumIntervalInSeconds cannot be less than 0 on retry policy")
+    if max_interval > 0 and max_interval < initial:
+        raise ValueError("MaximumIntervalInSeconds cannot be less than "
+                         "InitialIntervalInSeconds on retry policy")
+    if max_attempts < 0:
+        raise ValueError(
+            "MaximumAttempts cannot be less than 0 on retry policy")
+    if expiration < 0:
+        raise ValueError(
+            "ExpirationIntervalInSeconds cannot be less than 0 on retry policy")
+    if max_attempts == 0 and expiration == 0:
+        raise ValueError(
+            "MaximumAttempts and ExpirationIntervalInSeconds are both 0; "
+            "at least one must be specified on retry policy")
+
 
 
 def next_backoff_interval_seconds(

@@ -2,8 +2,8 @@
 
 A trimmed copy of the reference package's ``utils/log.py``: stdlib
 logging under the ``cadence_tpu_torch`` logger, with tags rendered as
-key=value pairs after the message. The serving plane logs its warnings
-through it."""
+key=value pairs after the message. The serving plane and the history
+host log through it."""
 
 from __future__ import annotations
 
@@ -40,8 +40,18 @@ class Logger:
             return f"{msg} | {kv}"
         return msg
 
+    def info(self, msg: str, **tags: Any) -> None:
+        self._log.info(self._fmt(msg, tags))
+
     def warn(self, msg: str, **tags: Any) -> None:
         self._log.warning(self._fmt(msg, tags))
+
+    def error(self, msg: str, **tags: Any) -> None:
+        self._log.error(self._fmt(msg, tags))
+
+    def exception(self, msg: str, **tags: Any) -> None:
+        """``error`` with the current exception's traceback."""
+        self._log.exception(self._fmt(msg, tags))
 
 
 def get_logger(name: str = _ROOT, **tags: Any) -> Logger:

@@ -79,7 +79,18 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     against the CPU's, and ``dryrun_multichip(4)`` over gloo on the card.
     One card: several ranks time-slice it, so these are the code path's
     and the collectives' times, not scaling;
-11. the refresh's line (``device_passes``: torch ops, no kernel of its
+11. ``service``: the port's history host (``cadence_tpu_torch/runtime``,
+    ``matching``, ``client``) at the size of one history host: 4 shards,
+    4,096 workflows started and answered through matching (every fourth
+    with an activity round trip), a 4,096-lane ``ResidentEngine`` seated
+    from the store with one ``admit_many`` but for 64 workflows, 4 rounds
+    of a signal and a ``HistoryService.serving_read`` on every workflow
+    (every read against the port's host ``StateBuilder`` replay of the
+    stored history; the 64 first reads are cold misses), then ``stop()``
+    draining the engine through the checkpoint plane; host-clock p50/p99
+    per verb, the seat's and each round's wall, FSM launches by route and
+    one round's device-busy share (torch.profiler);
+12. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -2195,6 +2206,350 @@ def phase_parallel(torch, np, S, RC, R, m, phase3_step, smi):
     return launches
 
 
+# -- phase 11: the history host (runtime/, matching/, client/) -----------
+
+# one history host: 4 shards, 4,096 open workflows (the engine's per-shard
+# history cache, runtime/engine/cache.py max_size=1024, times 4; bench.py's
+# 4,096-lane serving cell) on one task list, every fourth with one activity
+# round trip, answered by 16 concurrent pollers; a 4,096-lane ResidentEngine seated from the store but for 64
+# workflows, whose first serving_read is a cold miss; 4 rounds of a signal
+# and a serving_read on every workflow; the rounds' device-busy share is
+# profiled on this round (0-based)
+SVC_SHARDS, SVC_WORKFLOWS, SVC_UNSEATED, SVC_ROUNDS = 4, 4096, 64, 4
+SVC_ACTIVITY_EVERY, SVC_PROFILED_ROUND, SVC_POLLERS = 4, 1, 16
+SVC_TASK_LIST, SVC_DOMAIN, SVC_POLL_S = "svc-tl", "svc-domain", 60.0
+
+
+class ServiceRoutes:
+    """FSM launches of the history host's serving reads, by route: the
+    bulk seat (``admit_many``), the Δ composition (the engine's
+    ``_compose``) and the cold misses (``read_through``, which seats the
+    workflow in a free lane)."""
+
+    def __init__(self, RC):
+        self.RC = RC
+        self.counts = {"service_seat": 0, "service_tick": 0,
+                       "service_cold_miss": 0}
+
+    def wrap(self, engine):
+        engine._compose = self._counted(engine._compose, "service_tick")
+        engine.read_through = self._counted(engine.read_through,
+                                            "service_cold_miss")
+        return engine
+
+    def _counted(self, fn, route):
+        def call(*a, **k):
+            start = self.RC.replay_rows.launches
+            try:
+                return fn(*a, **k)
+            finally:
+                self.counts[route] += self.RC.replay_rows.launches - start
+        return call
+
+    def seat(self, fn):
+        start = self.RC.replay_rows.launches
+        out = fn()
+        self.counts["service_seat"] += self.RC.replay_rows.launches - start
+        return out
+
+
+def svc_wf(i):
+    return f"svc-wf-{i:05d}"
+
+
+def svc_host(persistence, serving, scope):
+    """The history host as the reference's service-plane test box builds
+    it (memory persistence, one domain, a single-host ring, the history
+    service with live transfer and timer queues, matching and the
+    clients), with ``serving`` handed in; the real clock."""
+    from cadence_tpu_torch.client import HistoryClient, MatchingClient
+    from cadence_tpu_torch.matching import MatchingEngine
+    from cadence_tpu_torch.runtime.domains import DomainCache, register_domain
+    from cadence_tpu_torch.runtime.membership import single_host_monitor
+    from cadence_tpu_torch.runtime.service import HistoryService
+
+    from types import SimpleNamespace
+
+    domain_id = register_domain(persistence.metadata, SVC_DOMAIN)
+    service = HistoryService(
+        SVC_SHARDS, persistence, DomainCache(persistence.metadata),
+        single_host_monitor("svc-host-0"), serving=serving, metrics=scope)
+    client = HistoryClient(service.controller, metrics=scope)
+    matching = MatchingEngine(persistence.task, client, metrics=scope)
+    service.wire(MatchingClient(matching), client)
+    service.start()
+    return SimpleNamespace(persistence=persistence, domain_id=domain_id,
+                           service=service, client=client,
+                           matching=matching)
+
+
+def svc_branch(host, wf, run):
+    shard = host.service.controller.shard_for(wf)
+    snap = host.persistence.execution.get_workflow_execution(
+        shard, host.domain_id, wf, run).snapshot
+    return snap["execution_info"]["branch_token"]
+
+
+def svc_batches(host, token):
+    from cadence_tpu_torch.runtime.persistence.records import BranchToken
+
+    if isinstance(token, bytes):
+        token = token.decode()
+    batches, _ = host.persistence.history.read_history_branch(
+        BranchToken.from_json(token), 1, 1 << 60)
+    return batches
+
+
+def svc_pollers(n, fn):
+    """Run ``fn`` ``n`` times over ``SVC_POLLERS`` concurrent pollers, as a
+    worker fleet polls a task list."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(SVC_POLLERS) as pool:
+        for f in [pool.submit(fn) for _ in range(n)]:
+            f.result()
+
+
+def svc_decide(host, first, lat):
+    """One decision poll through matching, answered: the first decision
+    of every fourth workflow schedules one activity, every other answer
+    carries no decision."""
+    from cadence_tpu_torch.core.enums import DecisionType
+    from cadence_tpu_torch.matching import PollRequest
+    from cadence_tpu_torch.runtime.api import Decision
+
+    t0 = time.perf_counter()
+    task = host.matching.poll_for_decision_task(PollRequest(
+        host.domain_id, SVC_TASK_LIST, "smoke", SVC_POLL_S))
+    check(task is not None, "no decision task within the poll")
+    i = int(task.workflow_id.rsplit("-", 1)[1])
+    decisions = []
+    if first and i % SVC_ACTIVITY_EVERY == 0:
+        decisions = [Decision(DecisionType.ScheduleActivityTask, {
+            "activity_id": f"a-{i}", "activity_type": "work",
+            "task_list": SVC_TASK_LIST, "input": b"x",
+            "schedule_to_close_timeout_seconds": 3600,
+            "schedule_to_start_timeout_seconds": 3600,
+            "start_to_close_timeout_seconds": 3600,
+            "heartbeat_timeout_seconds": 0})]
+    host.client.respond_decision_task_completed(
+        task.task_token, decisions, identity="smoke")
+    lat.append((time.perf_counter() - t0) * 1e3)
+
+
+def svc_activity(host, lat):
+    from cadence_tpu_torch.matching import PollRequest
+
+    t0 = time.perf_counter()
+    act = host.matching.poll_for_activity_task(PollRequest(
+        host.domain_id, SVC_TASK_LIST, "smoke", SVC_POLL_S))
+    check(act is not None, "no activity task within the poll")
+    host.client.respond_activity_task_completed(
+        act.task_token, result=b"done", identity="smoke")
+    lat.append((time.perf_counter() - t0) * 1e3)
+
+
+def svc_oracle(host, runs, wfs):
+    """The port's host oracle: StateBuilder over each workflow's stored
+    history, in the canonical snapshot form serving reads carry."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+
+    rb = StateRebuilder(host.persistence.history, device="cpu")
+    out = {}
+    for wf in wfs:
+        ms, _, _ = rb.rebuild(RebuildRequest(
+            host.domain_id, wf, runs[wf], svc_branch(host, wf, runs[wf])))
+        out[wf] = mutable_state_to_snapshot(ms)
+    return out
+
+
+def phase_service(torch, np, S, RC, smi):
+    """Phase 11: the port's history host on the card at the size of one
+    history host. Returns FSM launches by route."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, MemoryCheckpointStore)
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        create_memory_bundle)
+    from cadence_tpu_torch.serving import ResidentEngine
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    t_phase = time.perf_counter()
+    scope = Scope()
+    reg = scope.registry
+    routes = ServiceRoutes(RC)
+    persistence = create_memory_bundle()
+    engine = routes.wrap(ResidentEngine(
+        lanes=SVC_WORKFLOWS, caps=S.Capacities(**SERVE_CAPS),
+        checkpoints=CheckpointManager(MemoryCheckpointStore()),
+        history=persistence.history, metrics=scope, device="cuda"))
+    host = svc_host(persistence, engine, scope)
+    n = SVC_WORKFLOWS
+    wfs = [svc_wf(i) for i in range(n)]
+    lat = {"start": [], "poll_respond": [], "activity": [], "signal": [],
+           "serving_read": []}
+    drained = []
+    try:
+        # (a) starts, first decisions, activity round trips
+        runs = {}
+        t0 = time.perf_counter()
+        for i, wf in enumerate(wfs):
+            t1 = time.perf_counter()
+            runs[wf] = host.client.start_workflow_execution(
+                StartWorkflowRequest(
+                    domain=SVC_DOMAIN, workflow_id=wf, workflow_type="svc",
+                    task_list=SVC_TASK_LIST, input=b"in",
+                    execution_start_to_close_timeout_seconds=36000,
+                    task_start_to_close_timeout_seconds=3600,
+                    request_id=f"svc-start-{i}"))
+            lat["start"].append((time.perf_counter() - t1) * 1e3)
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc_pollers(n, lambda: svc_decide(host, True, lat["poll_respond"]))
+        n_act = len(range(0, n, SVC_ACTIVITY_EVERY))
+        svc_pollers(n_act, lambda: svc_activity(host, lat["activity"]))
+        svc_pollers(n_act,
+                    lambda: svc_decide(host, False, lat["poll_respond"]))
+        decide_s = time.perf_counter() - t0
+
+        # (b) seat the hot set from the store, but for 64 workflows
+        unseated = set(wfs[SVC_WORKFLOWS // SVC_UNSEATED - 1::
+                           SVC_WORKFLOWS // SVC_UNSEATED])
+        check(len(unseated) == SVC_UNSEATED, "unseated set size")
+        seat_next = {}
+        reqs = []
+        t0 = time.perf_counter()
+        for wf in wfs:
+            if wf in unseated:
+                continue
+            token = svc_branch(host, wf, runs[wf])
+            batches = svc_batches(host, token)
+            seat_next[wf] = batches[-1][-1].event_id + 1
+            reqs.append({"domain_id": host.domain_id, "workflow_id": wf,
+                         "run_id": runs[wf], "branch_token": token,
+                         "batches": batches})
+        store_read_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seated = routes.seat(lambda: host.service.serving.admit_many(reqs))
+        torch.cuda.synchronize()
+        seat_s = time.perf_counter() - t0
+        check(all(v is not None for v in seated.values())
+              and len(seated) == len(reqs), "the bulk seat left lanes out")
+        del reqs
+
+        # (c) rounds: signal every workflow, then read every workflow
+        rounds, busy, mismatches = [], None, 0
+        for r in range(SVC_ROUNDS):
+            t0 = time.perf_counter()
+            for i, wf in enumerate(wfs):
+                t1 = time.perf_counter()
+                host.client.signal_workflow_execution(SignalRequest(
+                    domain=SVC_DOMAIN, workflow_id=wf, signal_name="go",
+                    input=f"s{r}".encode(), identity="smoke",
+                    request_id=f"svc-sig-{r}-{i}"))
+                lat["signal"].append((time.perf_counter() - t1) * 1e3)
+            signal_s = time.perf_counter() - t0
+            got = {}
+
+            def read_all():
+                for wf in wfs:
+                    t1 = time.perf_counter()
+                    res = host.service.serving_read(
+                        host.domain_id, wf, runs[wf])
+                    lat["serving_read"].append(
+                        (time.perf_counter() - t1) * 1e3)
+                    check(res is not None, f"serving_read of {wf} is None")
+                    got[wf] = res
+            t0 = time.perf_counter()
+            if r == SVC_PROFILED_ROUND:
+                busy = device_busy(torch, read_all)
+                # the profiler's own trace processing is not the reads'
+                read_s = busy["profiled_wall_s"]
+                profiler_s = time.perf_counter() - t0 - read_s
+            else:
+                read_all()
+                read_s = time.perf_counter() - t0
+                profiler_s = 0.0
+            for wf in unseated:
+                seat_next.setdefault(
+                    wf, got[wf].snapshot["exec"]["next_event_id"])
+            t0 = time.perf_counter()
+            want = svc_oracle(host, runs, wfs)
+            bad = [wf for wf in wfs if got[wf].snapshot != want[wf]]
+            mismatches += len(bad)
+            rounds.append({"round": r, "signal_s": signal_s,
+                           "read_s": read_s, "wall_s": signal_s + read_s,
+                           "profiled": r == SVC_PROFILED_ROUND,
+                           "profiler_processing_s": profiler_s,
+                           "resident": sum(g.resident for g in got.values()),
+                           "oracle_s": time.perf_counter() - t0,
+                           "mismatches": len(bad)})
+            check(not bad, f"round {r}: {len(bad)} serving reads differ "
+                  f"from the host replay, first {bad[:3]}")
+        final_next = {wf: want[wf]["exec"]["next_event_id"] for wf in wfs}
+        counters = serve_counters(
+            reg, "serving_resident_hits", "serving_cold_misses",
+            "serving_events_replayed", "serving_ticks",
+            "serving_compose_failures", "serving_cold_read_failures")
+
+        # (d) stop: the engine drains through the checkpoint plane
+        orig_drain = host.service.serving.drain
+        host.service.serving.drain = (
+            lambda: drained.append(orig_drain()) or drained[-1])
+        t0 = time.perf_counter()
+        host.service.stop()
+        stop_s = time.perf_counter() - t0
+        engine = host.service.serving
+        occupancy = engine.occupancy()
+        seated_after = engine.describe()["seated"]
+    finally:
+        host.matching.shutdown()
+        if not drained:
+            host.service.stop()
+    reads = SVC_ROUNDS * n
+    appended = sum(final_next[wf] - seat_next[wf] for wf in wfs)
+    emit({"phase": "service", "part": "latency", "workflows": n,
+          "shards": SVC_SHARDS, "rounds": SVC_ROUNDS,
+          "host_ms": {k: percentiles(np, v) for k, v in lat.items()},
+          "start_s": start_s, "decide_s": decide_s, "nvidia_smi": smi})
+    emit({"phase": "service", "part": "seat", "lanes": SVC_WORKFLOWS,
+          "seated": len(seated), "unseated": SVC_UNSEATED,
+          "store_read_s": store_read_s, "seat_wall_s": seat_s,
+          "fsm_launches": routes.counts["service_seat"],
+          "nvidia_smi": smi})
+    emit({"phase": "service", "part": "rounds", "rounds": rounds,
+          "nvidia_smi": smi})
+    emit({"phase": "service", "part": "device_busy",
+          "round": SVC_PROFILED_ROUND, "reads": n, **busy,
+          "nvidia_smi": smi})
+    emit({"phase": "service", "part": "summary",
+          "phase_s": time.perf_counter() - t_phase, "reads": reads,
+          "counters": counters, "events_appended_after_seat": appended,
+          "drain": drained, "stop_s": stop_s,
+          "occupancy_after": occupancy, "seated_after": seated_after,
+          "oracle_mismatches": mismatches,
+          "launches_by_route": dict(routes.counts)})
+    check(counters["serving_resident_hits"] >= reads - SVC_UNSEATED,
+          f"resident hits {counters['serving_resident_hits']} < "
+          f"{reads} reads - {SVC_UNSEATED}")
+    check(counters["serving_events_replayed"] == appended,
+          f"serving_events_replayed {counters['serving_events_replayed']} "
+          f"!= {appended} events appended after the seat")
+    check(len(drained) == 1 and drained[0]["flush_failed"] == 0,
+          f"the drain at stop() failed flushes: {drained}")
+    check(drained[0]["flushed"] == SVC_WORKFLOWS,
+          f"stop() flushed {drained[0]['flushed']} of {SVC_WORKFLOWS} lanes")
+    check(occupancy == 0 and seated_after == 0,
+          "the engine is not empty after stop()")
+    for route, k in routes.counts.items():
+        check(k > 0, f"the history host made no {route} launch")
+    return dict(routes.counts)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2427,7 +2782,10 @@ def main() -> int:
     # phase
     parallel_launches = phase_parallel(torch, np, S, RC, R, m, step, smi)
 
-    # 11. kernels and device
+    # 11. the history host, launches counted by route inside the phase
+    service_launches = phase_service(torch, np, S, RC, smi)
+
+    # 12. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -2439,7 +2797,8 @@ def main() -> int:
         "source": "cadence_tpu_torch/ops/csrc/replay_fsm.cu",
         "replaces": "cadence_tpu/ops/replay_pallas.py:153",
         "launches": launches + launches_rebuild + sum(
-            serve_launches.values()) + sum(parallel_launches.values()),
+            serve_launches.values()) + sum(parallel_launches.values())
+        + sum(service_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -2467,7 +2826,8 @@ def main() -> int:
                               "replay_stream[bucket]": launches_stream,
                               "replay_stream[unbucketed]": launches_hist,
                               "rebuild_many": launches_rebuild,
-                              **serve_launches, **parallel_launches},
+                              **serve_launches, **parallel_launches,
+                              **service_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

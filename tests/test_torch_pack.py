@@ -201,8 +201,9 @@ def test_schema_constants_match_kernel_source():
 def test_import_hygiene():
     """Importing the port, the parallel-in-time replay and its scan
     kernel's wrapper, the rebuilder, the checkpoint plane, the serving
-    plane, the device task refresh and the native sidecar included,
-    loads neither jax nor the reference package."""
+    plane, the device task refresh, the native sidecar and the history
+    host (service, matching, clients) included, loads neither jax nor the
+    reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -216,6 +217,8 @@ def test_import_hygiene():
         "import cadence_tpu_torch.serving, cadence_tpu_torch.utils.quotas\n"
         "import cadence_tpu_torch.ops.refresh, cadence_tpu_torch.native\n"
         "import cadence_tpu_torch.parallel, cadence_tpu_torch.entry\n"
+        "import cadence_tpu_torch.runtime.service\n"
+        "import cadence_tpu_torch.matching, cadence_tpu_torch.client\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
