@@ -1,0 +1,118 @@
+"""Persistence decorator clients: metrics.
+
+Reference: common/persistence/persistenceMetricClients.go (per-API
+latency/error counters around every manager). Decorators are generic:
+they wrap any manager object and intercept its public methods, so one
+implementation covers all five managers — the factory stacks them the
+same way the reference's persistence-factory does.
+
+A copy of the reference package's ``runtime/persistence/decorators.py``
+without the rate-limited client (no caller of the port sets a store
+rate) and the testing clients (fault injection, the effect witness, the
+sanitizer's probe): ``wrap_bundle`` raises when one of those is asked
+for.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+from ...utils.metrics import NOOP, Scope
+
+
+class _Wrapped:
+    """Base proxy: public methods pass through hooks."""
+
+    def __init__(self, base: Any) -> None:
+        self._base = base
+
+    def _invoke(self, name: str, method, args, kwargs):
+        return method(*args, **kwargs)
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._base, name)
+        if not callable(attr) or name.startswith("_"):
+            return attr
+
+        def call(*args, **kwargs):
+            return self._invoke(name, attr, args, kwargs)
+
+        return call
+
+
+class MetricsClient(_Wrapped):
+    """Latency + error counters per persistence API, plus a trace span
+    per call when the calling thread carries a sampled trace
+    (utils/tracing.py) — the store hop of the end-to-end request trace.
+    The untraced path adds one current-span check; the span name and
+    the span machinery are only built when a trace is live."""
+
+    def __init__(self, base: Any, metrics: Scope = NOOP,
+                 manager: str = "") -> None:
+        super().__init__(base)
+        self._manager = manager or type(base).__name__
+        self._metrics = metrics.tagged(
+            layer="persistence", manager=self._manager
+        )
+
+    def _invoke(self, name, method, args, kwargs):
+        from ...utils.tracing import NOOP_SPAN, TRACER
+
+        span = (
+            NOOP_SPAN if TRACER.current() is None
+            else TRACER.span(
+                f"{self._manager}.{name}", service="persistence"
+            )
+        )
+        start = time.monotonic()
+        try:
+            with span:
+                out = method(*args, **kwargs)
+        except Exception as e:
+            self._metrics.inc(f"{name}.errors")
+            self._metrics.inc(f"{name}.errors.{type(e).__name__}")
+            raise
+        finally:
+            self._metrics.record(
+                f"{name}.latency", time.monotonic() - start
+            )
+        self._metrics.inc(f"{name}.calls")
+        return out
+
+
+def wrap_bundle(bundle, metrics: Scope = NOOP,
+                faults=None, effects=False, sanitize=False):
+    """Layer metrics over every manager in a PersistenceBundle,
+    mirroring persistence-factory/factory.go.
+
+    ``faults``, ``effects`` and ``sanitize`` install the reference's
+    testing clients (fault injection, the effect witness, the
+    concurrency sanitizer's store probe). The port has none of them
+    yet, so any value but the default raises ``NotImplementedError``.
+    """
+    from .interfaces import PersistenceBundle
+
+    for name, value, default in (("faults", faults, None),
+                                 ("effects", effects, False),
+                                 ("sanitize", sanitize, False)):
+        if value != default:
+            raise NotImplementedError(
+                f"wrap_bundle({name}=...): the fault-injection and witness "
+                "clients are not ported yet"
+            )
+
+    def deco(mgr, name):
+        if mgr is None:
+            return None
+        return MetricsClient(mgr, metrics, manager=name)
+
+    return PersistenceBundle(
+        shard=deco(bundle.shard, "shard"),
+        execution=deco(bundle.execution, "execution"),
+        history=deco(bundle.history, "history"),
+        task=deco(bundle.task, "task"),
+        metadata=deco(bundle.metadata, "metadata"),
+        visibility=deco(bundle.visibility, "visibility"),
+        checkpoint=deco(getattr(bundle, "checkpoint", None), "checkpoint"),
+    )

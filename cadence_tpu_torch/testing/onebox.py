@@ -1,0 +1,167 @@
+"""Onebox: a full cluster in one process.
+
+Reference: host/onebox.go:69 — frontend + matching + history + worker
+wired over real persistence with static membership (host/simpleMonitor
+.go), the backbone of the reference's integration suite. Used here by
+integration tests, the serving demo and the smoke run on the card.
+
+A copy of the reference package's ``testing/onebox.py`` over the port's
+modules. ``serving=True`` builds the ``ResidentEngine`` on ``device``
+(default ``"cuda"``, which raises without a card). The planes the port
+has not yet raise ``NotImplementedError`` when asked for: the worker
+service (``start_worker``, so it defaults to False here), the capacity
+autopilot (``autopilot``), the shared parallel queue executor
+(``queue_parallel``), fault injection (``faults``) and the concurrency
+sanitizer (``sanitize``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..client import HistoryClient, MatchingClient
+from ..cluster import ClusterMetadata
+from ..frontend import (
+    AdminHandler,
+    DomainHandler,
+    WorkflowHandler,
+)
+from ..matching import MatchingEngine
+from ..messaging import MessageBus
+from ..runtime.domains import DomainCache
+from ..runtime.membership import single_host_monitor
+from ..runtime.persistence.memory import create_memory_bundle
+from ..runtime.service import HistoryService
+from ..visibility import AdvancedVisibilityStore
+
+
+def _refuse_unported(start_worker, faults, sanitize, autopilot,
+                     queue_parallel) -> None:
+    for name, asked in (("start_worker", start_worker),
+                        ("faults", faults is not None),
+                        ("sanitize", sanitize),
+                        ("autopilot", autopilot),
+                        ("queue_parallel", queue_parallel)):
+        if asked:
+            raise NotImplementedError(
+                f"Onebox({name}=...): that plane is not ported to "
+                "cadence_tpu_torch yet"
+            )
+
+
+class Onebox:
+    def __init__(
+        self,
+        num_shards: int = 4,
+        persistence=None,
+        cluster_metadata: Optional[ClusterMetadata] = None,
+        host_identity: str = "onebox-0",
+        start_worker: bool = False,
+        queue_worker_count: int = 4,
+        faults=None,
+        time_source=None,
+        poll_request_id_fn=None,
+        checkpoints=None,
+        serving=None,
+        sanitize: bool = False,
+        autopilot=None,
+        queue_parallel: int = 0,
+        device="cuda",
+    ) -> None:
+        _refuse_unported(start_worker, faults, sanitize, autopilot,
+                         queue_parallel)
+        self.persistence = persistence or create_memory_bundle()
+        # every Onebox carries a real metrics scope and a metrics-
+        # wrapped bundle: per-store histogram latencies and the
+        # persistence hop of request traces are observable in every
+        # integration test (the MetricsClient's untraced cost is a
+        # perf_counter pair per call)
+        from ..runtime.persistence.decorators import wrap_bundle
+        from ..utils.metrics import Scope
+
+        self.metrics = Scope()
+        self.persistence = wrap_bundle(self.persistence, metrics=self.metrics)
+        self.bus = MessageBus()
+        self.cluster_metadata = cluster_metadata or ClusterMetadata()
+        self.domain_handler = DomainHandler(
+            self.persistence.metadata, self.cluster_metadata,
+            replication_producer=self.bus.new_producer("domain-replication"),
+        )
+        self.domains = DomainCache(self.persistence.metadata)
+        self.monitor = single_host_monitor(host_identity)
+        # checkpoints: True builds a CheckpointManager over the bundle's
+        # checkpoint store; or pass a ready CheckpointManager;
+        # None/False = cold rebuilds
+        if checkpoints is True:
+            from ..checkpoint import CheckpointManager
+
+            checkpoints = (
+                CheckpointManager(self.persistence.checkpoint)
+                if self.persistence.checkpoint is not None else None
+            )
+        self.checkpoints = checkpoints or None
+        # serving: True builds a ResidentEngine (continuous-batching
+        # resident serving megabatch) on ``device`` over the wrapped
+        # history manager + this box's checkpoint plane; or pass a ready
+        # ResidentEngine; None/False = serving reads raise
+        if serving is True:
+            from ..serving import ResidentEngine
+
+            serving = ResidentEngine(
+                checkpoints=self.checkpoints,
+                history=self.persistence.history,
+                metrics=self.metrics,
+                device=device,
+            )
+        self.serving = serving or None
+        self.history = HistoryService(
+            num_shards, self.persistence, self.domains, self.monitor,
+            queue_worker_count=queue_worker_count,
+            metrics=self.metrics,
+            time_source=time_source,
+            serving=self.serving,
+        )
+        self.history_client = HistoryClient(
+            self.history.controller, metrics=self.metrics
+        )
+        # the clock and the poll nonce are the two entropy sources a
+        # deterministic run must pin: matching shares history's time
+        # source, and poll_request_id_fn replaces the per-poll uuid
+        # with a caller-derived id
+        self.matching = MatchingEngine(
+            self.persistence.task, self.history_client,
+            time_source=time_source,
+            metrics=self.metrics,
+            poll_request_id_fn=poll_request_id_fn,
+        )
+        self.matching_client = MatchingClient(self.matching)
+        self.history.wire(self.matching_client, self.history_client)
+        self.visibility = AdvancedVisibilityStore(self.persistence.visibility)
+        self.frontend = WorkflowHandler(
+            self.domain_handler, self.domains,
+            self.history_client, self.matching_client,
+            visibility=self.visibility,
+            metrics=self.metrics,
+        )
+        self.admin = AdminHandler(self.history, self.domains, bus=self.bus)
+        self._started = False
+
+    def start(self) -> "Onebox":
+        if self._started:
+            return self
+        self.history.start()
+        self._started = True
+        return self
+
+    def stop(self) -> None:
+        self.history.stop()
+        self.matching.shutdown()
+        self.bus.close()
+        self._started = False
+
+    def __enter__(self) -> "Onebox":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+

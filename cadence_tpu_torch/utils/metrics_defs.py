@@ -14,8 +14,8 @@ thread carries a sampled trace (utils/tracing.py — the unsampled path
 is one thread-local read).
 
 A copy of the reference package's ``utils/metrics_defs.py`` cut to the
-history host: the history and matching operation lists and the
-instrumentation. The reference's ``*_METRICS`` name catalogs are read
+host runtime: the frontend, history and matching operation lists and
+the instrumentation. The reference's ``*_METRICS`` name catalogs are read
 only by its lint pass (``METRIC-UNDECLARED``), which is not ported.
 """
 
@@ -30,6 +30,27 @@ from . import tracing as _tracing
 # --------------------------------------------------------------------------
 # Scope catalog (reference: common/metrics/defs.go scope enums per service)
 # --------------------------------------------------------------------------
+
+FRONTEND_OPS = (
+    "register_domain", "describe_domain", "list_domains", "update_domain",
+    "deprecate_domain", "failover_domain",
+    "start_workflow_execution", "signal_workflow_execution",
+    "signal_with_start_workflow_execution",
+    "terminate_workflow_execution", "request_cancel_workflow_execution",
+    "reset_workflow_execution",
+    "poll_for_decision_task", "poll_for_activity_task",
+    "respond_decision_task_completed", "respond_decision_task_failed",
+    "respond_activity_task_completed", "respond_activity_task_failed",
+    "respond_activity_task_canceled", "record_activity_task_heartbeat",
+    "respond_query_task_completed", "query_workflow",
+    "get_workflow_execution_history", "describe_workflow_execution",
+    "describe_task_list", "reset_sticky_task_list",
+    "list_open_workflow_executions", "list_closed_workflow_executions",
+    "list_workflow_executions", "scan_workflow_executions",
+    "count_workflow_executions", "get_search_attributes",
+    "list_archived_workflow_executions", "health",
+    "list_task_list_partitions", "get_cluster_info",
+)
 
 HISTORY_OPS = (
     "start_workflow_execution", "signal_workflow_execution",

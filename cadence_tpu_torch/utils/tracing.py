@@ -15,7 +15,8 @@ by lookup).
 
 Completed spans land in a bounded in-process flight recorder (a ring
 buffer — old traces fall off, memory never grows), read back with
-``Tracer.spans()`` / ``traces()``.
+``Tracer.spans()`` / ``traces()`` or as Chrome-trace-format JSON through
+``Tracer.chrome_trace()`` and the ``dump_traces`` admin verb.
 
 Cost discipline (the serving path must not pay for disabled
 telemetry): nothing here creates implicit root traces. A root exists
@@ -29,8 +30,10 @@ attribute lookup and a None check.
 
 A copy of the reference package's ``utils/tracing.py`` without what the
 port has no caller for yet: the wire form of a context and the gRPC
-metadata helpers (with the rpc layer), the Chrome-trace export and the
-module-level shortcuts (with the pprof endpoints, A.14).
+metadata helpers (with the rpc layer), the JSON string form of the
+Chrome-trace export and the module-level shortcuts (with the pprof
+endpoints, A.14). ``chrome_trace`` stays: the admin handler's
+``dump_traces`` returns it.
 """
 
 from __future__ import annotations
@@ -324,6 +327,47 @@ class Tracer:
         with self._lock:
             self._spans.clear()
             self._bindings.clear()
+
+    # -- export --------------------------------------------------------
+
+    def chrome_trace(self, trace_id: Optional[str] = None) -> Dict:
+        """Chrome-trace-format JSON (dict): spans as complete ("X")
+        events, annotations as instant ("i") events, one pid per
+        service with process_name metadata — drop the output straight
+        into Perfetto or chrome://tracing."""
+        spans = [
+            s for s in self.spans()
+            if trace_id is None or s.trace_id == trace_id
+        ]
+        pids: Dict[str, int] = {}
+        events: List[Dict] = []
+        for s in spans:
+            pids.setdefault(s.service, len(pids) + 1)
+        for service, pid in sorted(pids.items(), key=lambda kv: kv[1]):
+            events.append({
+                "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                "args": {"name": service},
+            })
+        for s in spans:
+            pid = pids[s.service]
+            args = {
+                "trace_id": s.trace_id, "span_id": s.span_id,
+                "parent_id": s.parent_id,
+            }
+            args.update({k: str(v) for k, v in s.tags.items()})
+            events.append({
+                "name": s.name, "ph": "X", "ts": round(s.start_us, 1),
+                "dur": round(s.dur_us, 1), "pid": pid, "tid": s.thread,
+                "args": args,
+            })
+            for off_us, text in s.annotations:
+                events.append({
+                    "name": text, "ph": "i", "s": "t",
+                    "ts": round(s.start_us + off_us, 1),
+                    "pid": pid, "tid": s.thread,
+                    "args": {"span_id": s.span_id},
+                })
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 # the process tracer every layer shares (bootstrap configures it from

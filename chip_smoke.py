@@ -83,14 +83,27 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     ``matching``, ``client``) at the size of one history host: 4 shards,
     4,096 workflows started and answered through matching (every fourth
     with an activity round trip), a 4,096-lane ``ResidentEngine`` seated
-    from the store with one ``admit_many`` but for 64 workflows, 4 rounds
+    from the store with one ``admit_many`` but for 64 workflows, 2 rounds
     of a signal and a ``HistoryService.serving_read`` on every workflow
     (every read against the port's host ``StateBuilder`` replay of the
     stored history; the 64 first reads are cold misses), then ``stop()``
     draining the engine through the checkpoint plane; host-clock p50/p99
     per verb, the seat's and each round's wall, FSM launches by route and
     one round's device-busy share (torch.profiler);
-12. the refresh's line (``device_passes``: torch ops, no kernel of its
+12. ``frontend``: the user path (``cadence_tpu_torch/frontend``,
+    ``worker``, ``testing/onebox``): the port's Onebox twin over a 4-shard
+    history host with a 4,096-lane ``ResidentEngine``, 16 SDK ``Worker``s
+    (sticky) on one task list, 4,096 workflows started through the
+    frontend (every fourth with an activity, each then waiting on
+    signals), an open-loop burst of 8,192 requests (300 qps, bursty), each
+    a frontend signal and a ``serving_read`` (a workflow's first read a
+    cold miss that seats it), every read against the host replay at its
+    tip, queries the SDK answers and histories on a seeded 256, the
+    visibility counts, then the workers stop and ``box.stop()`` drains the
+    engine; host-clock p50/p99 per verb (start, signal, cold and resident
+    read, query, the SDK's decision), sustained qps, FSM launches by route
+    and the device-busy share of a 1,024-request window;
+13. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -2212,10 +2225,11 @@ def phase_parallel(torch, np, S, RC, R, m, phase3_step, smi):
 # history cache, runtime/engine/cache.py max_size=1024, times 4; bench.py's
 # 4,096-lane serving cell) on one task list, every fourth with one activity
 # round trip, answered by 16 concurrent pollers; a 4,096-lane ResidentEngine seated from the store but for 64
-# workflows, whose first serving_read is a cold miss; 4 rounds of a signal
-# and a serving_read on every workflow; the rounds' device-busy share is
-# profiled on this round (0-based)
-SVC_SHARDS, SVC_WORKFLOWS, SVC_UNSEATED, SVC_ROUNDS = 4, 4096, 64, 4
+# workflows, whose first serving_read is a cold miss; 2 rounds of a signal
+# and a serving_read on every workflow (cut from 4 so that phase 12 fits
+# the command's time limit); the rounds' device-busy share is profiled on
+# this round (0-based)
+SVC_SHARDS, SVC_WORKFLOWS, SVC_UNSEATED, SVC_ROUNDS = 4, 4096, 64, 2
 SVC_ACTIVITY_EVERY, SVC_PROFILED_ROUND, SVC_POLLERS = 4, 1, 16
 SVC_TASK_LIST, SVC_DOMAIN, SVC_POLL_S = "svc-tl", "svc-domain", 60.0
 
@@ -2550,6 +2564,373 @@ def phase_service(torch, np, S, RC, smi):
     return dict(routes.counts)
 
 
+# phase 12, the frontend and the worker SDK: the port's Onebox twin with
+# the history host's resident engine (4,096 lanes, the serving caps)
+# answered by 16 SDK workers on one task list, sticky on, as a fleet of
+# worker processes polls it. 4,096 workflows started through the
+# frontend (every fourth runs one activity, each then loops on a "ping"
+# signal), then serve_demo's open-loop burst at the host's size: 8,192
+# requests (2 a workflow, round-robin) on ArrivalProcess(qps=300,
+# kind="bursty", seed=11), each a frontend signal and a serving_read, the
+# first read of a workflow a cold miss that seats it; then queries and
+# histories of a seeded 256, the visibility counts, and the drain. The
+# requests due at one moment form a batch (signals, then reads), whose
+# first read ticks; a burst that keeps its schedule makes batches of a
+# request or two, so the round-robin reads a lane about once per 4,096
+# ticks. A lane stays seated while idle for fewer than FE_IDLE_TICKS
+# ticks (the engine's default, 256, would evict it between its reads)
+FE_SHARDS, FE_WORKFLOWS, FE_WORKERS, FE_ACTIVITY_EVERY = 4, 4096, 16, 4
+FE_QPS, FE_REQUESTS, FE_ARRIVAL_SEED = 300.0, 8192, 11
+FE_SAMPLE, FE_SAMPLE_SEED, FE_BUSY_REQUESTS = 256, 12, 1024
+FE_IDLE_TICKS = 2 * FE_WORKFLOWS
+FE_DOMAIN, FE_TASK_LIST, FE_WAIT_S = "fe-domain", "fe-tl", 600.0
+
+
+class FrontendRoutes:
+    """FSM launches of the frontend phase's serving reads, by route: the
+    Δ composition of a tick (the engine's ``_compose``) and the cold
+    misses that seat a workflow (``read_through``). A launch counts to
+    the innermost route running: a cold miss that ticks a dirty lane
+    counts that tick's launch as a tick."""
+
+    def __init__(self, RC):
+        self.RC = RC
+        self.counts = {"frontend_tick": 0, "frontend_cold_miss": 0}
+        self._inner = [0]
+
+    def wrap(self, engine):
+        engine._compose = self._counted(engine._compose, "frontend_tick")
+        engine.read_through = self._counted(engine.read_through,
+                                            "frontend_cold_miss")
+        return engine
+
+    def _counted(self, fn, route):
+        def call(*a, **k):
+            start = self.RC.replay_rows.launches
+            self._inner.append(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                nested = self._inner.pop()
+                made = self.RC.replay_rows.launches - start
+                self.counts[route] += made - nested
+                self._inner[-1] += made
+        return call
+
+
+def fe_workflow(seen):
+    """The phase's workflow type: every fourth workflow runs one
+    activity, then each loops on the "ping" signal. ``seen`` maps a
+    workflow's input to the signals its last decision consumed, which
+    the query handler answers (a handler sees no history)."""
+
+    def run(ctx, input):
+        if int(input) % FE_ACTIVITY_EVERY == 0:
+            yield ctx.schedule_activity("fe-work", input)
+        n = 0
+        while True:
+            yield ctx.wait_signal("ping")
+            n += 1
+            seen[input] = n
+    return run
+
+
+def fe_timed(fn, lat):
+    """``fn`` with the wall of each call that returned True appended."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if out:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def fe_settled(box, domain_id, runs):
+    """Workflows with a decision or an activity still outstanding."""
+    from cadence_tpu_torch.core.ids import EMPTY_EVENT_ID
+
+    ex = box.persistence.execution
+    out = []
+    for wf, run in runs.items():
+        snap = ex.get_workflow_execution(
+            box.history.controller.shard_for(wf), domain_id, wf,
+            run).snapshot
+        if (snap["execution_info"]["decision_schedule_id"]
+                != EMPTY_EVENT_ID or snap["pending_activities"]):
+            out.append(wf)
+    return out
+
+
+def fe_wait_settled(box, domain_id, runs, what):
+    t0 = time.perf_counter()
+    while True:
+        left = fe_settled(box, domain_id, runs)
+        if not left:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < FE_WAIT_S,
+              f"{len(left)} workflows still have work outstanding after "
+              f"{what}, first {left[:3]}")
+        time.sleep(0.2)
+
+
+def fe_branch(box, domain_id, wf, run):
+    shard = box.history.controller.shard_for(wf)
+    return box.persistence.execution.get_workflow_execution(
+        shard, domain_id, wf, run).snapshot["execution_info"]["branch_token"]
+
+
+def phase_frontend(torch, np, S, RC, smi, device="cuda"):
+    """Phase 12: the port's frontend and SDK workers over the history
+    host on the card. Returns FSM launches by route."""
+    from cadence_tpu_torch.checkpoint import CheckpointManager
+    from cadence_tpu_torch.core.enums import EventType
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        create_memory_bundle)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+    from cadence_tpu_torch.serving import ArrivalProcess, ResidentEngine
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.utils.metrics import Scope
+    from cadence_tpu_torch.worker import Worker
+
+    t_phase = time.perf_counter()
+    n = FE_WORKFLOWS
+    routes = FrontendRoutes(RC)
+    persistence = create_memory_bundle()
+    checkpoints = CheckpointManager(persistence.checkpoint)
+    engine_scope = Scope()
+    engine = routes.wrap(ResidentEngine(
+        lanes=n, caps=S.Capacities(**SERVE_CAPS), checkpoints=checkpoints,
+        history=persistence.history, metrics=engine_scope,
+        idle_ticks=FE_IDLE_TICKS, device=device))
+    box = Onebox(num_shards=FE_SHARDS, persistence=persistence,
+                 checkpoints=checkpoints, serving=engine,
+                 device=device).start()
+    lat = {k: [] for k in ("start", "signal", "cold_read", "resident_read",
+                           "request", "query", "sdk_decision")}
+    seen, workers, drained = {}, [], []
+    wfs = [f"fe-wf-{i:05d}" for i in range(n)]
+    try:
+        domain_id = box.domain_handler.register_domain(FE_DOMAIN)
+        for k in range(FE_WORKERS):
+            w = Worker(box.frontend, FE_DOMAIN, FE_TASK_LIST,
+                       identity=f"fe-worker-{k}")
+            w.register_workflow("fe-signal-sink", fe_workflow(seen))
+            w.register_activity("fe-work", lambda b: b"done:" + b)
+            w.register_query_handler(
+                "fe-signal-sink",
+                lambda qtype, args: b"%d" % seen.get(args, 0))
+            w.decisions.poll_and_process_one = fe_timed(
+                w.decisions.poll_and_process_one, lat["sdk_decision"])
+            workers.append(w)
+            w.start()
+
+        # (a) starts through the frontend; the workers take the first
+        # decisions and the activity round trips meanwhile
+        runs = {}
+        t0 = time.perf_counter()
+        for i, wf in enumerate(wfs):
+            t1 = time.perf_counter()
+            runs[wf] = box.frontend.start_workflow_execution(
+                StartWorkflowRequest(
+                    domain=FE_DOMAIN, workflow_id=wf,
+                    workflow_type="fe-signal-sink", task_list=FE_TASK_LIST,
+                    input=b"%d" % i, request_id=f"fe-start-{i}",
+                    execution_start_to_close_timeout_seconds=36000,
+                    task_start_to_close_timeout_seconds=3600))
+            lat["start"].append((time.perf_counter() - t1) * 1e3)
+        start_s = time.perf_counter() - t0
+        settle_s = fe_wait_settled(box, domain_id, runs,
+                                   "the first decisions")
+        decisions_before_burst = len(lat["sdk_decision"])
+
+        # (b) the open-loop burst: a signal, then a serving read
+        schedule = ArrivalProcess(qps=FE_QPS, kind="bursty",
+                                  seed=FE_ARRIVAL_SEED).schedule(FE_REQUESTS)
+        reads, req_batches = [], []
+        busy_from = n + (n - FE_BUSY_REQUESTS) // 2
+        window = range(busy_from, busy_from + FE_BUSY_REQUESTS)
+        t_burst = time.perf_counter()
+
+        def serve(lo, hi):
+            """Requests [lo, hi) on their schedule, as the open-loop
+            harness takes them: every request due by now is one batch,
+            its signals first, then its reads in arrival order (the
+            first read's tick composes every dirty lane)."""
+            i = lo
+            while i < hi:
+                now = time.perf_counter() - t_burst
+                if schedule[i] > now:
+                    time.sleep(schedule[i] - now)
+                    now = schedule[i]
+                j = i + 1
+                while j < hi and schedule[j] <= now:
+                    j += 1
+                req_batches.append(j - i)
+                for k in range(i, j):
+                    wf = wfs[k % n]
+                    t1 = time.perf_counter()
+                    box.frontend.signal_workflow_execution(SignalRequest(
+                        domain=FE_DOMAIN, workflow_id=wf,
+                        signal_name="ping", input=b"%d" % k,
+                        identity="fe-caller", request_id=f"fe-sig-{k}"))
+                    lat["signal"].append((time.perf_counter() - t1) * 1e3)
+                for k in range(i, j):
+                    wf = wfs[k % n]
+                    t1 = time.perf_counter()
+                    got = box.history.serving_read(domain_id, wf, runs[wf])
+                    t2 = time.perf_counter()
+                    lat["cold_read" if k < n else "resident_read"].append(
+                        (t2 - t1) * 1e3)
+                    lat["request"].append(
+                        (t2 - t_burst - schedule[k]) * 1e3)
+                    check(got is not None, f"serving_read of {wf} is None")
+                    reads.append((wf, got))
+                i = j
+
+        serve(0, window.start)
+        busy = device_busy(torch, lambda: serve(window.start, window.stop))
+        serve(window.stop, FE_REQUESTS)
+        burst_s = time.perf_counter() - t_burst
+        seat_by_miss_s = sum(lat["cold_read"]) / 1e3
+        counters = {
+            "serving_resident_hits": box.metrics.registry.counter_value(
+                "serving_resident_hits"),
+            **serve_counters(engine_scope.registry, "serving_cold_misses",
+                             "serving_events_replayed", "serving_ticks",
+                             "serving_compose_failures",
+                             "serving_cold_read_failures")}
+        engine_timers = {}
+        for name in ("serving_tick_seconds", "serving_tick_pack",
+                     "serving_tick_replay", "serving_tick_commit",
+                     "serving_read_seconds"):
+            st = engine_scope.registry.timer_stats(name)
+            engine_timers[name] = {
+                "n": st[0], "total_ms": st[1] * 1e3,
+                "p50": st.p50 * 1e3, "p99": st.p99 * 1e3}
+        settle_after_s = fe_wait_settled(box, domain_id, runs,
+                                         "the burst's decisions")
+
+        # (c) queries the SDK answers, histories, visibility
+        sample = sorted(random.Random(FE_SAMPLE_SEED).sample(wfs, FE_SAMPLE))
+        answers = {}
+        for wf in sample:
+            t1 = time.perf_counter()
+            answers[wf] = box.frontend.query_workflow(
+                FE_DOMAIN, wf, query_type="signals",
+                query_args=b"%d" % wfs.index(wf), timeout_s=60.0)
+            lat["query"].append((time.perf_counter() - t1) * 1e3)
+        delivered = {wf: FE_REQUESTS // n for wf in wfs}
+        bad_queries = [wf for wf in sample
+                       if answers[wf] != b"%d" % delivered[wf]]
+        histories, bad_histories = {}, []
+        t0 = time.perf_counter()
+        for wf in wfs:
+            histories[wf] = [e for b in svc_batches(
+                box, fe_branch(box, domain_id, wf, runs[wf])) for e in b]
+        for wf in sample:
+            events, token = box.frontend.get_workflow_execution_history(
+                FE_DOMAIN, wf, runs[wf])
+            if token or [e.to_dict() for e in events] != [
+                    e.to_dict() for e in histories[wf]]:
+                bad_histories.append(wf)
+        failed_decisions = [
+            wf for wf, h in histories.items()
+            if any(e.event_type == EventType.DecisionTaskFailed for e in h)]
+        open_count = box.frontend.count_workflow_executions(FE_DOMAIN)
+        listed, token = [], 0
+        while True:
+            page, token = box.frontend.list_open_workflow_executions(
+                FE_DOMAIN, page_size=1000, next_token=token)
+            listed.extend(page)
+            if not token:
+                break
+        history_s = time.perf_counter() - t0
+
+        # (d) every read against the host replay at the read's tip
+        t0 = time.perf_counter()
+        rb = StateRebuilder(box.persistence.history, device="cpu")
+        tokens = {wf: fe_branch(box, domain_id, wf, runs[wf]) for wf in wfs}
+        mismatches = []
+        for k, (wf, got) in enumerate(reads):
+            tip = got.snapshot["exec"]["next_event_id"]
+            ms, _, _ = rb.rebuild(RebuildRequest(
+                domain_id, wf, runs[wf], tokens[wf], next_event_id=tip))
+            if got.snapshot != mutable_state_to_snapshot(ms):
+                mismatches.append((k, wf))
+        oracle_s = time.perf_counter() - t0
+
+        # (e) the workers stop; stop() drains the engine
+        t0 = time.perf_counter()
+        for w in workers:
+            w.stop()
+        workers_stop_s = time.perf_counter() - t0
+        orig_drain = engine.drain
+        engine.drain = lambda: drained.append(orig_drain()) or drained[-1]
+        t0 = time.perf_counter()
+        box.stop()
+        stop_s = time.perf_counter() - t0
+        occupancy = engine.occupancy()
+        seated_after = engine.describe()["seated"]
+    finally:
+        for w in workers:
+            w.stop()
+        if not drained:
+            box.stop()
+    emit({"phase": "frontend", "part": "latency", "workflows": n,
+          "workers": FE_WORKERS, "shards": FE_SHARDS,
+          "requests": FE_REQUESTS,
+          "host_ms": {k: percentiles(np, v) for k, v in lat.items()},
+          "nvidia_smi": smi})
+    emit({"phase": "frontend", "part": "summary",
+          "phase_s": time.perf_counter() - t_phase, "start_s": start_s,
+          "settle_s": settle_s, "decisions_before_burst":
+          decisions_before_burst, "burst_s": burst_s,
+          "qps_target": FE_QPS, "qps_sustained": FE_REQUESTS / burst_s,
+          "request_batches": len(req_batches),
+          "request_batch_max": max(req_batches),
+          "engine_timers_ms": engine_timers,
+          "seat_by_miss_s": seat_by_miss_s,
+          "settle_after_burst_s": settle_after_s,
+          "history_and_visibility_s": history_s, "oracle_s": oracle_s,
+          "workers_stop_s": workers_stop_s, "stop_s": stop_s,
+          "counters": counters, "launches_by_route": dict(routes.counts),
+          "device_busy": {"requests": [window.start, window.stop],
+                          **busy},
+          "queries": len(sample), "query_mismatches": len(bad_queries),
+          "history_mismatches": len(bad_histories),
+          "failed_decisions": len(failed_decisions),
+          "open_count": open_count, "listed_open": len(listed),
+          "oracle_mismatches": len(mismatches), "drain": drained,
+          "occupancy_after": occupancy, "seated_after": seated_after,
+          "nvidia_smi": smi})
+    check(not mismatches, f"{len(mismatches)} of {len(reads)} reads differ "
+          f"from the host replay at their tip, first {mismatches[:3]}")
+    check(counters["serving_resident_hits"] >= FE_REQUESTS - n,
+          f"resident hits {counters['serving_resident_hits']} < "
+          f"{FE_REQUESTS} requests - {n} workflows")
+    check(not failed_decisions, f"{len(failed_decisions)} histories hold a "
+          f"DecisionTaskFailed, first {failed_decisions[:3]}")
+    check(not bad_queries, f"{len(bad_queries)} query answers differ from "
+          f"the signals delivered, first {bad_queries[:3]}")
+    check(not bad_histories, f"{len(bad_histories)} frontend histories "
+          f"differ from the store's, first {bad_histories[:3]}")
+    check(open_count == n and len(listed) == n,
+          f"open count {open_count}, listed {len(listed)}, want {n}")
+    check(len(drained) == 1 and drained[0]["flush_failed"] == 0
+          and drained[0]["flushed"] >= 1,
+          f"the drain at stop() did not flush cleanly: {drained}")
+    check(occupancy == 0 and seated_after == 0,
+          "the engine is not empty after stop()")
+    for route, k in routes.counts.items():
+        check(k > 0, f"the frontend phase made no {route} launch")
+    return dict(routes.counts)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2785,7 +3166,11 @@ def main() -> int:
     # 11. the history host, launches counted by route inside the phase
     service_launches = phase_service(torch, np, S, RC, smi)
 
-    # 12. kernels and device
+    # 12. the frontend and the worker SDK over the history host, launches
+    # counted by route inside the phase
+    frontend_launches = phase_frontend(torch, np, S, RC, smi)
+
+    # 13. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -2798,7 +3183,8 @@ def main() -> int:
         "replaces": "cadence_tpu/ops/replay_pallas.py:153",
         "launches": launches + launches_rebuild + sum(
             serve_launches.values()) + sum(parallel_launches.values())
-        + sum(service_launches.values()),
+        + sum(service_launches.values())
+        + sum(frontend_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -2827,7 +3213,7 @@ def main() -> int:
                               "replay_stream[unbucketed]": launches_hist,
                               "rebuild_many": launches_rebuild,
                               **serve_launches, **parallel_launches,
-                              **service_launches},
+                              **service_launches, **frontend_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

@@ -201,8 +201,10 @@ def test_schema_constants_match_kernel_source():
 def test_import_hygiene():
     """Importing the port, the parallel-in-time replay and its scan
     kernel's wrapper, the rebuilder, the checkpoint plane, the serving
-    plane, the device task refresh, the native sidecar and the history
-    host (service, matching, clients) included, loads neither jax nor the
+    plane, the device task refresh, the native sidecar, the history
+    host (service, matching, clients), the frontend, the worker SDK,
+    visibility, archival, the cluster metadata, the message bus and the
+    onebox and serving-demo twins included, loads neither jax nor the
     reference package."""
     code = (
         "import sys\n"
@@ -219,6 +221,11 @@ def test_import_hygiene():
         "import cadence_tpu_torch.parallel, cadence_tpu_torch.entry\n"
         "import cadence_tpu_torch.runtime.service\n"
         "import cadence_tpu_torch.matching, cadence_tpu_torch.client\n"
+        "import cadence_tpu_torch.frontend, cadence_tpu_torch.worker\n"
+        "import cadence_tpu_torch.visibility, cadence_tpu_torch.archival\n"
+        "import cadence_tpu_torch.cluster, cadence_tpu_torch.messaging\n"
+        "import cadence_tpu_torch.testing.onebox\n"
+        "import cadence_tpu_torch.testing.serve_demo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
@@ -259,6 +266,20 @@ def test_entry_points_default_to_cuda():
         DeviceDispatcher(CAPS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         S.state_from_numpy(S.empty_state(1, CAPS))
+
+
+def test_onebox_serving_defaults_to_cuda():
+    """The onebox twin's resident engine and the serving demo take the
+    card by default: without one they raise, with no CPU fallback."""
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.testing.serve_demo import run_demo
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Onebox(serving=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_demo(quiet=True)
 
 
 def test_kernel_build_needs_nvcc():
