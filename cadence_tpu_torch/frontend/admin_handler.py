@@ -6,11 +6,10 @@ raw history reads for replication debugging, and an admin
 DescribeWorkflowExecution exposing the shard id + raw mutable state.
 
 A copy of the reference package's ``frontend/admin_handler.py``. The
-verbs of planes the port has not yet (resharding, the admin queue view,
-the replication planes' raw history read) raise ``BadRequestError`` as
-the reference's handler raises on a host without them; the autopilot's
-verbs raise through the same check as the reference's, since the port's
-history service has no autopilot.
+verbs of planes the port has not yet (resharding, the admin queue view)
+raise ``BadRequestError`` as the reference's handler raises on a host
+without them; the autopilot's verbs raise through the same check as the
+reference's, since the port's history service has no autopilot.
 """
 
 from __future__ import annotations
@@ -149,7 +148,10 @@ class AdminHandler:
         start_event_id: int = 1, end_event_id: int = 1 << 60,
     ):
         """Raw batches + version-history items (replication debugging)."""
-        raise _not_ported("the raw history read of the replication planes")
+        domain_id = self.domains.get_by_name(domain_name).info.id
+        return self.history.get_workflow_history_raw(
+            domain_id, workflow_id, run_id, start_event_id, end_event_id
+        )
 
     def refresh_workflow_tasks(
         self, domain_name: str, workflow_id: str, run_id: str = ""

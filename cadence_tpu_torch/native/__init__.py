@@ -10,12 +10,19 @@ edited source is rebuilt and a stale library is never loaded. It exposes:
   fused pad and layout of ragged event rows into the dense tensors the
   replay consumes ([T, B, E], [B, T, E] and the FSM kernel's [T, E, B]);
 - ``replay_sequential``: the compiled sequential replayer, the baseline a
-  replay's rate is measured against.
+  replay's rate is measured against;
+- ``fnv1a32_batch``: bulk id hashing (``utils/hashing.hash31``);
+- ``tensor_compress`` / ``tensor_decompress``: the varint + zigzag delta
+  codec of int32 tensors, the replication transport's wire form of a
+  snapshot-shipped state row. A truncated or corrupt blob raises
+  ``ValueError`` on both paths.
 
 Without ``g++`` (or when the build fails) ``_load()`` returns None and
-the scatters take their numpy paths (``HAVE_NATIVE`` says which is live);
+the scatters, the hash and the codec take their Python paths
+(``HAVE_NATIVE`` says which is live; ``force_python=True`` asks for them);
 ``replay_sequential`` then raises, because the baseline must be compiled
-code. Tests run both scatter paths differentially.
+code. Tests run both paths differentially, the codec and the hash also
+against the reference package's bytes.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -107,6 +114,19 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.ct_replay_sequential.argtypes = (
             [i32p, i64p] + [ctypes.c_int64] * 8 + [i32p] * 8)
         lib.ct_replay_sequential.restype = None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.ct_fnv1a32_batch.argtypes = [
+            ctypes.c_char_p, i64p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint32)]
+        lib.ct_fnv1a32_batch.restype = None
+        lib.ct_compress_bound.argtypes = [ctypes.c_int64]
+        lib.ct_compress_bound.restype = ctypes.c_int64
+        lib.ct_tensor_compress.argtypes = [i32p, ctypes.c_int64, u8p]
+        lib.ct_tensor_compress.restype = ctypes.c_int64
+        lib.ct_tensor_decompress.argtypes = [u8p, ctypes.c_int64, i32p]
+        lib.ct_tensor_decompress.restype = ctypes.c_int64
+        lib.ct_tensor_peek_count.argtypes = [u8p, ctypes.c_int64]
+        lib.ct_tensor_peek_count.restype = ctypes.c_int64
         _lib = lib
         HAVE_NATIVE = True
         return lib
@@ -196,6 +216,128 @@ def scatter_batch_major(rows: np.ndarray, lengths: np.ndarray,
     ``PackedHistories.events``)."""
     return _scatter("ct_scatter_batch_major", rows, lengths, max_events,
                     force_python, "bte")
+
+
+# -- hashing ---------------------------------------------------------------
+
+
+def fnv1a32_batch(strings, force_python: bool = False) -> np.ndarray:
+    """hash31 (``utils/hashing``) of a batch of strings, as uint32."""
+    lib = None if force_python else _load()
+    if lib is None:
+        from ..utils.hashing import hash31
+
+        return np.array([hash31(s) for s in strings], dtype=np.uint32)
+    encoded = [s.encode() for s in strings]
+    data = b"".join(encoded)
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    out = np.empty(len(encoded), dtype=np.uint32)
+    lib.ct_fnv1a32_batch(
+        data, _i64p(offsets), len(encoded),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out
+
+
+# -- transport codec -------------------------------------------------------
+
+
+def tensor_compress(
+    tensor: np.ndarray, force_python: bool = False,
+) -> Tuple[bytes, Tuple[int, ...]]:
+    """int32 tensor → (blob, shape): varint(count), then the zigzag
+    varint of each delta from the previous value (wrapping mod 2^32)."""
+    flat = np.ascontiguousarray(tensor, dtype=np.int32).reshape(-1)
+    lib = None if force_python else _load()
+    if lib is None:
+        return _py_compress(flat), tensor.shape
+    buf = np.empty(lib.ct_compress_bound(flat.size), dtype=np.uint8)
+    n = lib.ct_tensor_compress(
+        _i32p(flat), flat.size,
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return bytes(buf[:n]), tensor.shape
+
+
+def tensor_decompress(
+    blob: bytes, shape: Tuple[int, ...], force_python: bool = False,
+) -> np.ndarray:
+    """(blob, shape) → int32 tensor. Raises ``ValueError`` when the
+    header's count is not the shape's or the blob is truncated or
+    malformed."""
+    expected = int(np.prod(shape)) if shape else 1
+    lib = None if force_python else _load()
+    if lib is None:
+        return _py_decompress(blob, expected).reshape(shape)
+    raw = np.frombuffer(blob, dtype=np.uint8)
+    u8 = raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    count = lib.ct_tensor_peek_count(u8, len(blob))
+    if count < 0 or count != expected:
+        raise ValueError(
+            f"tensor_decompress: corrupt blob (count={count}, "
+            f"expected {expected})")
+    out = np.empty(count, dtype=np.int32)
+    decoded = lib.ct_tensor_decompress(u8, len(blob), _i32p(out))
+    if decoded != count:
+        raise ValueError(
+            f"tensor_decompress: truncated blob (decoded {decoded} of "
+            f"{count})")
+    return out.reshape(shape)
+
+
+def _py_compress(flat: np.ndarray) -> bytes:
+    out = bytearray()
+
+    def put(v: int) -> None:
+        while v >= 0x80:
+            out.append((v & 0x7F) | 0x80)
+            v >>= 7
+        out.append(v)
+
+    put(flat.size)
+    prev = 0
+    for v in flat.tolist():
+        # wrap the delta to int32 first: Python ints are unbounded, so a
+        # raw (d >> 31) sign probe is wrong for |d| >= 2^31
+        d = ((v - prev + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+        prev = v
+        put(((d << 1) ^ (d >> 31)) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def _py_decompress(blob: bytes, expected: Optional[int] = None) -> np.ndarray:
+    pos = 0
+
+    def get() -> int:
+        nonlocal pos
+        shift = 0
+        v = 0
+        while True:
+            if pos >= len(blob) or shift > 28:
+                raise ValueError("tensor_decompress: corrupt blob")
+            b = blob[pos]
+            pos += 1
+            v |= (b & 0x7F) << shift
+            if not (b & 0x80):
+                return v & 0xFFFFFFFF
+            shift += 7
+
+    n = get()
+    if expected is not None and n != expected:
+        # the header is checked before allocating: a forged count would
+        # otherwise allocate a giant array from a few corrupt bytes
+        raise ValueError(
+            f"tensor_decompress: corrupt blob (count={n}, "
+            f"expected {expected})")
+    out = np.empty(n, dtype=np.int32)
+    prev = 0
+    for i in range(n):
+        z = get()
+        d = (z >> 1) ^ -(z & 1)
+        prev = (prev + d) & 0xFFFFFFFF
+        if prev >= 0x80000000:
+            prev -= 0x100000000
+        out[i] = prev
+    return out
 
 
 # -- sequential replayer (compiled-host baseline) --------------------------

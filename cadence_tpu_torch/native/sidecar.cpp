@@ -8,6 +8,10 @@
 //   instead of a per-workflow numpy loop.
 // - ct_replay_sequential: the compiled sequential replayer that a replay
 //   measures its rate against.
+// - ct_fnv1a32_batch: bulk FNV-1a id hashing.
+// - The replication transport's tensor codec (ct_tensor_compress /
+//   _decompress / _peek_count, ct_compress_bound): zigzag + varint over
+//   int32 deltas, the wire form of a snapshot-shipped state row.
 //
 // A trimmed copy of the reference package's native/sidecar.cpp, equal to
 // it function for function in what it keeps. All buffers are allocated by
@@ -119,6 +123,103 @@ void ct_scatter_teb(const int32_t* rows, const int64_t* lengths,
         }
     }
     delete[] srcs;
+}
+
+// -- hashing ------------------------------------------------------------
+//
+// FNV-1a 32-bit over each string, masked to 31 bits (utils/hashing.py's
+// hash31 for a batch).
+void ct_fnv1a32_batch(const char* data, const int64_t* offsets,
+                      int64_t n, uint32_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        uint32_t h = 2166136261u;
+        for (int64_t p = offsets[i]; p < offsets[i + 1]; ++p) {
+            h ^= (uint8_t)data[p];
+            h *= 16777619u;
+        }
+        out[i] = h & 0x7fffffffu;
+    }
+}
+
+// -- transport codec ----------------------------------------------------
+//
+// zigzag + varint over int32 deltas (consecutive values of a state row
+// are strongly correlated). Encoded layout: varint(count) then count
+// varints of zigzag(delta). Deltas wrap mod 2^32.
+
+static inline uint32_t zigzag32(int32_t v) {
+    return ((uint32_t)v << 1) ^ (uint32_t)(v >> 31);
+}
+
+static inline int32_t unzigzag32(uint32_t v) {
+    return (int32_t)(v >> 1) ^ -(int32_t)(v & 1);
+}
+
+static inline uint8_t* put_varint(uint8_t* p, uint32_t v) {
+    while (v >= 0x80) {
+        *p++ = (uint8_t)(v | 0x80);
+        v >>= 7;
+    }
+    *p++ = (uint8_t)v;
+    return p;
+}
+
+// bounded read: returns the advanced cursor, or nullptr on truncation
+// or an overlong (>5 byte) varint
+static inline const uint8_t* get_varint(const uint8_t* p, const uint8_t* end,
+                                        uint32_t* v) {
+    uint32_t out = 0;
+    int shift = 0;
+    while (true) {
+        if (p >= end || shift > 28) return nullptr;
+        uint8_t b = *p++;
+        out |= (uint32_t)(b & 0x7f) << shift;
+        if (!(b & 0x80)) break;
+        shift += 7;
+    }
+    *v = out;
+    return p;
+}
+
+// Worst case: 5 bytes per value + 5-byte header.
+int64_t ct_compress_bound(int64_t n) { return 5 * n + 5; }
+
+// returns the encoded byte count
+int64_t ct_tensor_compress(const int32_t* data, int64_t n, uint8_t* out) {
+    uint8_t* p = put_varint(out, (uint32_t)n);
+    uint32_t prev = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint32_t cur = (uint32_t)data[i];
+        p = put_varint(p, zigzag32((int32_t)(cur - prev)));
+        prev = cur;
+    }
+    return (int64_t)(p - out);
+}
+
+// returns the decoded element count (the caller sized `out` from the
+// header), or -1 on a truncated or malformed blob
+int64_t ct_tensor_decompress(const uint8_t* blob, int64_t blob_len,
+                             int32_t* out) {
+    const uint8_t* end = blob + blob_len;
+    uint32_t n;
+    const uint8_t* p = get_varint(blob, end, &n);
+    if (p == nullptr) return -1;
+    uint32_t prev = 0;
+    for (uint32_t i = 0; i < n; ++i) {
+        uint32_t z;
+        p = get_varint(p, end, &z);
+        if (p == nullptr) return -1;
+        prev += (uint32_t)unzigzag32(z);
+        out[i] = (int32_t)prev;
+    }
+    return (int64_t)n;
+}
+
+// the element count without decoding; -1 on a malformed header
+int64_t ct_tensor_peek_count(const uint8_t* blob, int64_t blob_len) {
+    uint32_t n;
+    if (get_varint(blob, blob + blob_len, &n) == nullptr) return -1;
+    return (int64_t)n;
 }
 
 // -- sequential replayer ------------------------------------------------

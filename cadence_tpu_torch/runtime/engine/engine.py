@@ -7,10 +7,9 @@ activity RPCs) — per-workflow lock + optimistic-concurrency retry
 (Update_History_Loop, decisionHandler.go:291-311) around every mutation.
 
 A copy of the reference package's ``runtime/engine/engine.py``. The
-replication entry points (``ndc_replicator``, ``replicator_queue``,
-``replicate_events_v2``, ``get_replication_messages``,
-``get_replication_backlog``, ``get_replication_checkpoint``) wait for
-the port of the replication plane.
+replication planes it builds (``ndc_replicator``, ``replicator_queue``)
+rebuild on the engine's ``device`` (set by the history service; default
+``"cuda"``).
 """
 
 from __future__ import annotations
@@ -1168,11 +1167,90 @@ class HistoryEngine:
 
         return self._update_workflow(domain_id, workflow_id, run_id, action)
 
+    # -- replication entry points -------------------------------------
+    # Reference: historyEngine.go:1914 ReplicateEventsV2 →
+    # nDCHistoryReplicator.ApplyEvents; replicatorQueueProcessor serves
+    # GetReplicationMessages.
+
+    @property
+    def ndc_replicator(self):
+        if getattr(self, "_ndc_replicator", None) is None:
+            from ..replication.ndc import NDCHistoryReplicator
+
+            cluster_meta = getattr(self, "cluster_metadata", None)
+
+            def is_active_locally(domain_id: str) -> bool:
+                if cluster_meta is None:
+                    return True
+                try:
+                    rec = self.domains.get_by_id(domain_id)
+                except Exception:
+                    return False
+                return (
+                    rec.replication_config.active_cluster_name
+                    == cluster_meta.current_cluster_name
+                )
+
+            self._ndc_replicator = NDCHistoryReplicator(
+                self.shard, self.domains, self.cache,
+                is_active_locally=is_active_locally,
+                task_notifier=self._task_notifier,
+                timer_notifier=self._timer_notifier,
+                rebuild_chunk_size=getattr(self, "rebuild_chunk_size", 0),
+                faults=getattr(self, "faults", None),
+                checkpoints=getattr(self, "checkpoints", None),
+                metrics=getattr(self, "metrics", None),
+                serving=getattr(self, "serving", None),
+                device=getattr(self, "device", "cuda"),
+            )
+        return self._ndc_replicator
+
+    @property
+    def replicator_queue(self):
+        if getattr(self, "_replicator_queue", None) is None:
+            from ..replication.replicator_queue import ReplicatorQueueProcessor
+
+            cm = getattr(self, "cluster_metadata", None)
+            self._replicator_queue = ReplicatorQueueProcessor(
+                self.shard,
+                remote_clusters=(
+                    cm.enabled_remote_clusters() if cm is not None else None
+                ),
+                metrics=getattr(self, "metrics", None),
+                faults=getattr(self, "faults", None),
+                checkpoints=getattr(self, "checkpoints", None),
+                device=getattr(self, "device", "cuda"),
+            )
+        return self._replicator_queue
+
+    def replicate_events_v2(self, task) -> None:
+        """Apply one replicated event batch (HistoryTaskV2)."""
+        self.ndc_replicator.apply_events(task)
+
+    def get_replication_messages(self, cluster: str, last_retrieved_id: int,
+                                 max_tasks=None):
+        return self.replicator_queue.get_replication_messages(
+            cluster, last_retrieved_id, max_tasks=max_tasks
+        )
+
+    def get_replication_backlog(self, last_retrieved_id: int):
+        """Per-run backlog spans past the cursor, no event payloads —
+        the adaptive consumer's catch-up probe."""
+        return self.replicator_queue.get_replication_backlog(
+            last_retrieved_id
+        )
+
+    def get_replication_checkpoint(
+        self, domain_id: str, workflow_id: str, run_id: str
+    ) -> bytes:
+        """Delta-compressed branch-tip ReplayCheckpoint for snapshot
+        shipping (b"" = no shippable snapshot; consumer falls back to
+        event shipping)."""
+        return self.replicator_queue.get_replication_checkpoint(
+            domain_id, workflow_id, run_id
+        )
+
     # -- re-replication read ------------------------------------------
-    # The replication entry points of the reference package's engine
-    # (ndc_replicator, replicator_queue, replicate_events_v2 and the
-    # replication-message verbs) wait for the port of the replication
-    # plane.
 
     def get_workflow_history_raw(
         self, domain_id: str, workflow_id: str, run_id: str,

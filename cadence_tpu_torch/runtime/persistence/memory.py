@@ -7,13 +7,20 @@ concurrency semantics are real even though the medium is a dict.
 
 A copy of the reference package's ``runtime/persistence/memory.py``. Its
 history manager keeps the port's branch copy on first sight (the
-reference copies the branch on every append).
+reference copies the branch on every append). Its execution manager keeps
+each shard's transfer, timer and replication tasks in a ``_TaskTable``, a
+dict with its keys kept sorted, so a queue read costs the page it returns
+and not a sort of the shard's whole table (the reference sorts on every
+read, quadratic in a backlog that its standby queues hold). Tasks, whose
+fields are all immutable, are copied shallow, and mutable-state snapshots
+by a pickle round trip (the reference deep-copies both).
 """
 
 from __future__ import annotations
 
 import bisect
 import copy
+import pickle
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
@@ -75,6 +82,15 @@ class MemoryShardManager(I.ShardManager):
                 raise EntityNotExistsError(f"shard {shard_id}")
             return copy.deepcopy(info)
 
+    def range_id(self, shard_id: int) -> int:
+        """The stored shard's range id (the fence of every execution
+        write), without copying its info."""
+        with self._lock:
+            info = self._shards.get(shard_id)
+            if info is None:
+                raise EntityNotExistsError(f"shard {shard_id}")
+            return info.range_id
+
     def update_shard(self, info: ShardInfo, previous_range_id: int) -> None:
         with self._lock:
             stored = self._shards.get(info.shard_id)
@@ -125,6 +141,95 @@ class MemoryShardManager(I.ShardManager):
             self._replication_progress[key] = (previous_version + 1, blob)
 
 
+def _copy_snapshot(snapshot: Dict[str, Any]) -> Dict[str, Any]:
+    """A deep copy of a mutable-state snapshot (plain data: dicts,
+    lists, strings, numbers, bytes) by a pickle round trip, a third of
+    ``copy.deepcopy``'s time."""
+    return pickle.loads(pickle.dumps(snapshot, pickle.HIGHEST_PROTOCOL))
+
+
+class _TaskTable(dict):
+    """One shard's task table: a dict whose keys are also held sorted, in
+    runs of at most ``2 * _RUN`` keys (so an insert moves one run, not the
+    table), so a range read bisects to its first key instead of sorting
+    the table."""
+
+    _RUN = 512
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._runs: list = []   # sorted runs of keys, in order
+        self._maxes: list = []  # the last key of each run
+
+    def __setitem__(self, key, value) -> None:
+        if key not in self:
+            self._insort(key)
+        super().__setitem__(key, value)
+
+    def __delitem__(self, key) -> None:
+        super().__delitem__(key)
+        self._discard(key)
+
+    def pop(self, key, *default):
+        if key in self:
+            value = super().pop(key)
+            self._discard(key)
+            return value
+        return super().pop(key, *default)
+
+    def _insort(self, key) -> None:
+        if not self._runs:
+            self._runs.append([key])
+            self._maxes.append(key)
+            return
+        i = min(bisect.bisect_left(self._maxes, key), len(self._runs) - 1)
+        run = self._runs[i]
+        bisect.insort(run, key)
+        self._maxes[i] = run[-1]
+        if len(run) > 2 * self._RUN:
+            self._runs[i:i + 1] = [run[:self._RUN], run[self._RUN:]]
+            self._maxes[i:i + 1] = [run[self._RUN - 1], run[-1]]
+
+    def _discard(self, key) -> None:
+        i = bisect.bisect_left(self._maxes, key)
+        run = self._runs[i]
+        del run[bisect.bisect_left(run, key)]
+        if run:
+            self._maxes[i] = run[-1]
+        else:
+            del self._runs[i], self._maxes[i]
+
+    def page(self, key, size: int, limit, inclusive: bool = False) -> list:
+        """Up to ``size`` values in key order from the first key above
+        ``key`` (from it, with ``inclusive``), while ``limit(key)``
+        holds."""
+        find = bisect.bisect_left if inclusive else bisect.bisect_right
+        i = find(self._maxes, key)
+        out: list = []
+        if i == len(self._runs):
+            return out
+        j = find(self._runs[i], key)
+        while i < len(self._runs) and len(out) < size:
+            for k in self._runs[i][j:j + size - len(out)]:
+                if not limit(k):
+                    return out
+                out.append(self[k])
+            i, j = i + 1, 0
+        return out
+
+
+class _TaskTables(dict):
+    """shard -> ``_TaskTable``, made on first sight of a shard."""
+
+    def setdefault(self, shard_id, default=None):
+        if shard_id not in self:
+            self[shard_id] = _TaskTable()
+        return self[shard_id]
+
+    def get(self, shard_id, default=None):
+        return self.setdefault(shard_id)
+
+
 class MemoryExecutionManager(I.ExecutionManager):
     def __init__(self, shard_manager: MemoryShardManager) -> None:
         self._shard_manager = shard_manager
@@ -134,16 +239,17 @@ class MemoryExecutionManager(I.ExecutionManager):
         # (shard, domain, wf) -> CurrentExecution
         self._current: Dict[Tuple, CurrentExecution] = {}
         # shard -> {task_id -> TransferTask}
-        self._transfer: Dict[int, Dict[int, TransferTask]] = {}
+        self._transfer: Dict[int, Dict[int, TransferTask]] = _TaskTables()
         # shard -> {(vis_ts, task_id) -> TimerTask}
-        self._timers: Dict[int, Dict[Tuple[int, int], TimerTask]] = {}
-        self._replication: Dict[int, Dict[int, ReplicationTask]] = {}
+        self._timers: Dict[int, Dict[Tuple[int, int], TimerTask]] = (
+            _TaskTables())
+        self._replication: Dict[int, Dict[int, ReplicationTask]] = (
+            _TaskTables())
 
     # -- fencing ------------------------------------------------------
 
     def _check_range(self, shard_id: int, range_id: int) -> None:
-        stored = self._shard_manager.get_shard(shard_id)
-        if stored.range_id > range_id:
+        if self._shard_manager.range_id(shard_id) > range_id:
             raise ShardOwnershipLostError(shard_id)
 
     # -- helpers ------------------------------------------------------
@@ -151,18 +257,18 @@ class MemoryExecutionManager(I.ExecutionManager):
     def _put_tasks(self, shard_id: int, snap: WorkflowSnapshot) -> None:
         tq = self._transfer.setdefault(shard_id, {})
         for t in snap.transfer_tasks:
-            tq[t.task_id] = copy.deepcopy(t)
+            tq[t.task_id] = copy.copy(t)
         mq = self._timers.setdefault(shard_id, {})
         for t in snap.timer_tasks:
-            mq[(t.visibility_timestamp, t.task_id)] = copy.deepcopy(t)
+            mq[(t.visibility_timestamp, t.task_id)] = copy.copy(t)
         rq = self._replication.setdefault(shard_id, {})
         for t in snap.replication_tasks:
-            rq[t.task_id] = copy.deepcopy(t)
+            rq[t.task_id] = copy.copy(t)
 
     def _store(self, shard_id: int, snap: WorkflowSnapshot) -> None:
         key = (shard_id, snap.domain_id, snap.workflow_id, snap.run_id)
         self._executions[key] = (
-            copy.deepcopy(snap.snapshot),
+            _copy_snapshot(snap.snapshot),
             snap.next_event_id,
             snap.last_write_version,
         )
@@ -263,7 +369,7 @@ class MemoryExecutionManager(I.ExecutionManager):
                 raise EntityNotExistsError(f"execution {workflow_id}/{run_id}")
             snap, next_event_id, _ = stored
             return GetWorkflowResponse(
-                snapshot=copy.deepcopy(snap), next_event_id=next_event_id
+                snapshot=_copy_snapshot(snap), next_event_id=next_event_id
             )
 
     def update_workflow_execution(
@@ -492,15 +598,10 @@ class MemoryExecutionManager(I.ExecutionManager):
         self, shard_id: int, read_level: int, max_read_level: int, batch_size: int
     ) -> List[TransferTask]:
         with self._lock:
-            tasks = sorted(
-                (
-                    t
-                    for tid, t in self._transfer.get(shard_id, {}).items()
-                    if read_level < tid <= max_read_level
-                ),
-                key=lambda t: t.task_id,
-            )
-            return copy.deepcopy(tasks[:batch_size])
+            q = self._transfer.get(shard_id)
+            tasks = q.page(read_level, batch_size,
+                           lambda tid: tid <= max_read_level)
+            return [copy.copy(t) for t in tasks]
 
     def complete_transfer_task(self, shard_id: int, task_id: int) -> None:
         with self._lock:
@@ -521,19 +622,14 @@ class MemoryExecutionManager(I.ExecutionManager):
         after_key=None,
     ) -> List[TimerTask]:
         with self._lock:
-            tasks = sorted(
-                (
-                    t
-                    for (ts, _), t in self._timers.get(shard_id, {}).items()
-                    if min_ts <= ts < max_ts
-                    and (
-                        after_key is None
-                        or (ts, t.task_id) > tuple(after_key)
-                    )
-                ),
-                key=lambda t: (t.visibility_timestamp, t.task_id),
-            )
-            return copy.deepcopy(tasks[:batch_size])
+            q = self._timers.get(shard_id)
+            if after_key is not None and tuple(after_key) >= (min_ts,):
+                tasks = q.page(tuple(after_key), batch_size,
+                               lambda k: k[0] < max_ts)
+            else:
+                tasks = q.page((min_ts,), batch_size,
+                               lambda k: k[0] < max_ts, inclusive=True)
+            return [copy.copy(t) for t in tasks]
 
     def complete_timer_task(
         self, shard_id: int, visibility_ts: int, task_id: int
@@ -557,15 +653,9 @@ class MemoryExecutionManager(I.ExecutionManager):
         self, shard_id: int, read_level: int, batch_size: int
     ) -> List[ReplicationTask]:
         with self._lock:
-            tasks = sorted(
-                (
-                    t
-                    for tid, t in self._replication.get(shard_id, {}).items()
-                    if tid > read_level
-                ),
-                key=lambda t: t.task_id,
-            )
-            return copy.deepcopy(tasks[:batch_size])
+            q = self._replication.get(shard_id)
+            tasks = q.page(read_level, batch_size, lambda _: True)
+            return [copy.copy(t) for t in tasks]
 
     def complete_replication_task(self, shard_id: int, task_id: int) -> None:
         with self._lock:

@@ -11,12 +11,24 @@ pump read may re-take it). A DEFERRED/RETRY entry keeps blocking the
 ack sweep — the cursor must never pass a task that was read but not
 processed, or queue GC would delete it unexecuted.
 
-A copy of the reference package's ``runtime/queues/ack.py``.
+A copy of the reference package's ``runtime/queues/ack.py``. Deviation:
+the deferred entries of one manager share one timer thread, which turns
+every entry whose delay has elapsed into RETRY at once and rewinds the
+read level once for them all (the reference starts a ``threading.Timer``
+per deferral and rewinds once per entry, so a standby plane holding H
+tasks re-reads its held span H times per standby delay). An entry turns
+RETRY at most ``DEFER_COALESCE_S`` after its delay. A pump that calls
+``keep_deferred_tasks`` hands its deferred tasks in with ``defer`` and
+takes them back with ``take_retries``, instead of re-reading its whole
+held span from the ack level each time one of them is due.
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import threading
+import time
 from typing import Callable, Dict, Optional
 
 from ...utils.locks import make_guarded, make_lock
@@ -25,6 +37,10 @@ _RUNNING = 0
 _DONE = 1
 _DEFERRED = 2
 _RETRY = 3
+
+# how late a deferred entry may turn RETRY, so that entries deferred
+# close together are released (and re-read) together
+DEFER_COALESCE_S = 0.05
 
 
 class QueueAckManager:
@@ -49,6 +65,20 @@ class QueueAckManager:
         # cached min RETRY key (None = no retries): _bump_read_locked
         # consults it on every add(), so it must not rescan the dict
         self._retry_min = None
+        # deferred entries by deadline: (monotonic deadline, seq, key) in
+        # a heap, the live seq of each key in _parked (a re-deferral
+        # leaves its older heap entry stale); one wheel thread releases
+        # them while any are parked
+        self._deadlines: list = []
+        self._parked: Dict[object, int] = {}
+        self._seq = itertools.count()
+        self._wheel_cv = threading.Condition(self._lock)
+        self._wheel: Optional[threading.Thread] = None
+        # keep_deferred_tasks: key -> task of each parked entry, the
+        # RETRY keys not yet taken back, and the pump's wake-up
+        self._held_tasks: Optional[Dict[object, object]] = None
+        self._retry_ready: list = []
+        self.on_retry: Optional[Callable[[], None]] = None
         # pumps that keep their own read cursor (the timer pumps'
         # _resume_key) register here; called whenever the read level is
         # FORCED backwards (rewind / a defer retry firing) so the
@@ -182,6 +212,8 @@ class QueueAckManager:
             # being re-verified
             for key in [k for k in self._outstanding if k > level]:
                 del self._outstanding[key]
+                if self._held_tasks is not None:
+                    self._held_tasks.pop(key, None)
             self._recompute_retry_min_locked()
             # invalidate any in-flight read batch: its remaining offers
             # would re-bump the read cursor over the rewound span
@@ -219,32 +251,103 @@ class QueueAckManager:
                 if s not in (_RUNNING, _DONE)
             )
 
-    def defer(self, key, delay_s: float) -> None:
+    def keep_deferred_tasks(self, on_retry: Callable[[], None]) -> None:
+        """Hold each deferred task beside its entry: when its delay
+        elapses it waits in ``take_retries`` and ``on_retry`` wakes the
+        pump, with no read rewind."""
+        with self._lock:
+            self._held_tasks = {}
+            self.on_retry = on_retry
+
+    def take_retries(self) -> list:
+        """(key, task) of every held entry whose delay elapsed, each
+        re-taken (RUNNING) as ``add()`` would re-take it."""
+        with self._lock:
+            out = []
+            for key in self._retry_ready:
+                task = self._held_tasks.pop(key, None)
+                if task is not None and \
+                        self._outstanding.get(key) == _RETRY:
+                    self._outstanding[key] = _RUNNING
+                    out.append((key, task))
+            self._retry_ready = []
+            if out:
+                self._recompute_retry_min_locked()
+            return out
+
+    def defer(self, key, delay_s: float, task=None) -> None:
         """Hold a read-but-unprocessable task (passive domain / standby
         verification pending). The entry stays outstanding — blocking
         the ack sweep, so queue GC cannot delete the row — and becomes
         re-takeable (RETRY) after ``delay_s``, when the read level also
-        rewinds so the pump re-reads it."""
+        rewinds so the pump re-reads it (or, under
+        ``keep_deferred_tasks``, ``take_retries`` hands ``task`` back)."""
         with self._lock:
             if self._outstanding.get(key) != _RUNNING:
                 return
             self._outstanding[key] = _DEFERRED
+            if self._held_tasks is not None and task is not None:
+                self._held_tasks[key] = task
+            seq = next(self._seq)
+            self._parked[key] = seq
+            heapq.heappush(
+                self._deadlines, (time.monotonic() + delay_s, seq, key)
+            )
+            if self._wheel is None:
+                self._wheel = threading.Thread(
+                    target=self._release_deferred, name="ack-defer",
+                    daemon=True,
+                )
+                self._wheel.start()
+            else:
+                self._wheel_cv.notify()
 
-        def ready() -> None:
-            with self._lock:
-                if self._outstanding.get(key) != _DEFERRED:
-                    return
-                self._outstanding[key] = _RETRY
-                self.read_level = self.ack_level
-                if self._retry_min is None or key < self._retry_min:
-                    self._retry_min = key
-                hook = self.on_read_rewind
-            if hook is not None:
-                hook()
-
-        t = threading.Timer(delay_s, ready)
-        t.daemon = True
-        t.start()
+    def _release_deferred(self) -> None:
+        """The wheel: sleep to the earliest deadline (plus the coalescing
+        slack), turn every elapsed DEFERRED entry RETRY, rewind the read
+        level once, tell the pump; exit when nothing is parked."""
+        with self._lock:
+            while self._parked:
+                due = self._deadlines[0][0] + DEFER_COALESCE_S
+                now = time.monotonic()
+                if due > now:
+                    self._wheel_cv.wait(due - now)
+                    continue
+                rewind = held = False
+                while self._deadlines and self._deadlines[0][0] <= now:
+                    _, seq, key = heapq.heappop(self._deadlines)
+                    if self._parked.get(key) != seq:
+                        continue  # re-deferred later: a stale deadline
+                    del self._parked[key]
+                    if self._outstanding.get(key) != _DEFERRED:
+                        if self._held_tasks is not None:
+                            self._held_tasks.pop(key, None)
+                        continue
+                    self._outstanding[key] = _RETRY
+                    if self._retry_min is None or key < self._retry_min:
+                        self._retry_min = key
+                    if self._held_tasks is not None \
+                            and key in self._held_tasks:
+                        self._retry_ready.append(key)
+                        held = True
+                    else:
+                        rewind = True
+                hooks = []
+                if rewind:
+                    self.read_level = self.ack_level
+                    hooks.append(self.on_read_rewind)
+                if held:
+                    hooks.append(self.on_retry)
+                hooks = [h for h in hooks if h is not None]
+                if hooks:
+                    self._lock.release()
+                    try:
+                        for hook in hooks:
+                            hook()
+                    finally:
+                        self._lock.acquire()
+            self._deadlines.clear()
+            self._wheel = None
 
     def abandon(self, key) -> None:
         """Un-register a task WITHOUT completing it. Unlike defer(),

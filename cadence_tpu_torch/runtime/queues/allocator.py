@@ -6,7 +6,8 @@ standby cluster must not fire timers or dispatch tasks for a domain it
 is passive for (the active side does; the standby's state converges via
 replication instead).
 
-A copy of the reference package's ``runtime/queues/allocator.py``.
+A copy of the reference package's ``runtime/queues/allocator.py``;
+``defer_task`` also hands the task to the ack manager.
 """
 
 from __future__ import annotations
@@ -51,9 +52,11 @@ class DeferTask(Exception):
 STANDBY_RETRY_DELAY_S = 0.5
 
 
-def defer_task(ack, key, delay_s: float = STANDBY_RETRY_DELAY_S) -> None:
+def defer_task(ack, key, delay_s: float = STANDBY_RETRY_DELAY_S,
+               task=None) -> None:
     """Hold a deferred (passive-domain / standby-unverified) task: the
     ack entry stays outstanding — blocking the ack sweep so queue GC
     cannot delete the row — and becomes re-readable after the standby
-    delay (QueueAckManager.defer)."""
-    ack.defer(key, delay_s)
+    delay (QueueAckManager.defer; ``task`` rides along for a pump that
+    takes its retries back instead of re-reading them)."""
+    ack.defer(key, delay_s, task)

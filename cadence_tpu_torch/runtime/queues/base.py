@@ -8,7 +8,10 @@ checkpoints the ack level into shardInfo.
 
 A copy of the reference package's ``runtime/queues/base.py``. Fault
 injection (``make_fault_hook``) and the shared parallel executor's mode
-wait for their planes.
+wait for their planes; ``no_faults`` stands where the reference builds a
+fault hook and refuses a schedule. A pump takes its deferred tasks back
+from the ack manager (``take_retries``) instead of re-reading its held
+span from the ack level when one is due.
 """
 
 from __future__ import annotations
@@ -60,6 +63,15 @@ class ResumeCursor:
         with self._lock:
             self._gen += 1
             self._key = None
+
+
+def no_faults(faults, site: str) -> None:
+    """The reference's ``faults=`` hook point on a queue or replication
+    plane (``make_fault_hook``). Fault injection waits for the port's
+    testing slice, so any value but None raises."""
+    if faults is not None:
+        raise NotImplementedError(
+            f"{site}: fault injection (faults=) is not ported yet")
 
 
 def read_due_timers(
@@ -138,7 +150,7 @@ def run_task_attempts(
                 process(task)
             return True
         except DeferTask:
-            defer_task(ack, key)
+            defer_task(ack, key, task=task)
             return False
         except EntityNotExistsServiceError:
             return True  # stale task: workflow/decision moved on
@@ -157,7 +169,7 @@ def run_task_attempts(
         f"(last: {type(last_exc).__name__}: {last_exc}); "
         f"parked for retry in {exhausted_retry_delay_s}s"
     )
-    defer_task(ack, key, exhausted_retry_delay_s)
+    defer_task(ack, key, exhausted_retry_delay_s, task=task)
     return False
 
 
@@ -238,6 +250,9 @@ class QueueProcessorBase:
         self._pump_thread = threading.Thread(
             target=self._pump, name=f"{name}-pump", daemon=True
         )
+        # a deferred task comes back through take_retries: the pump does
+        # not re-read its held span from the ack level for it
+        ack.keep_deferred_tasks(self.notify)
 
     def start(self) -> None:
         self._pump_thread.start()
@@ -313,6 +328,9 @@ class QueueProcessorBase:
             self._metrics.gauge("task_held", self.ack.held())
 
     def _process_batch(self) -> None:
+        if not self._paused.is_set():
+            for key, task in self.ack.take_retries():
+                self._pool.submit(self._run_task, task, key)
         while not self._stopped.is_set():
             if self._paused.is_set():
                 return

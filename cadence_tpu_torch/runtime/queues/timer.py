@@ -7,10 +7,8 @@ timeouts, activity retry timers, workflow backoff (cron/retry) timers,
 workflow timeout, retention-driven history deletion. The pump sleeps on
 a LocalTimerGate armed with the earliest unfired deadline.
 
-A copy of the reference package's ``runtime/queues/timer.py``. Without
-the standby processors a task of a domain active elsewhere is held
-(``DeferTask``); fault injection and the parallel executor's mode wait
-for their planes.
+A copy of the reference package's ``runtime/queues/timer.py``. Fault
+injection and the parallel executor's mode wait for their planes.
 """
 
 from __future__ import annotations
@@ -54,12 +52,15 @@ class TimerQueueProcessor:
         matching=None,
         worker_count: int = 4,
         batch_size: int = 64,
+        standby_clusters=(),
         metrics=None,
         exhausted_retry_delay_s=None,
     ) -> None:
         self.shard = shard
         self.engine = engine
         self.matching = matching
+        self.standby_clusters = frozenset(standby_clusters)
+        self.has_standby = bool(self.standby_clusters)
         self._exhausted_retry_delay_s = exhausted_retry_delay_s
         self.name = f"timer-{shard.shard_id}"
         self._log = get_logger("cadence_tpu_torch.queue.timer", shard=shard.shard_id)
@@ -208,22 +209,28 @@ class TimerQueueProcessor:
             )
         if not finished:
             return  # parked (deferred / exhausted-retry) or stopping
-        try:
-            self.shard.persistence.execution.complete_timer_task(
-                self.shard.shard_id, task.visibility_timestamp,
-                task.task_id,
-            )
-        except Exception:
-            self._log.exception(f"complete_timer_task failed for {key}")
+        if not self.has_standby:   # with standby planes, QueueGC deletes
+            try:
+                self.shard.persistence.execution.complete_timer_task(
+                    self.shard.shard_id, task.visibility_timestamp,
+                    task.task_id,
+                )
+            except Exception:
+                self._log.exception(f"complete_timer_task failed for {key}")
         self.ack.complete(key)
 
     # -- handlers ------------------------------------------------------
 
     def _process(self, task: TimerTask) -> None:
-        if self._allocator.owning_cluster(task.domain_id) is not None:
-            # the domain is active in another cluster: hold the task; it
-            # fires here only after a failover makes us active (the
-            # standby plane that would own it is not ported)
+        owner = self._allocator.owning_cluster(task.domain_id)
+        if owner is not None:
+            if owner in self.standby_clusters:
+                # that cluster's standby variant owns it (incl.
+                # retention deletes); failover rewinds this cursor to
+                # the standby cursor
+                return
+            # no standby plane covers the owning cluster: hold the
+            # task; it fires here only after a failover makes us active
             raise DeferTask(task.domain_id)
         handler = {
             TimerTaskType.UserTimer: self._process_user_timer,

@@ -6,10 +6,8 @@ activity tasks to matching, record visibility, close-execution fan-out
 (parent notification + parent-close policy), external cancel/signal,
 child-workflow start.
 
-A copy of the reference package's ``runtime/queues/transfer.py``.
-Without the standby processors a task of a domain active elsewhere is
-held (``DeferTask``); fault injection and the parallel executor's mode
-wait for their planes.
+A copy of the reference package's ``runtime/queues/transfer.py``. Fault
+injection and the parallel executor's mode wait for their planes.
 """
 
 from __future__ import annotations
@@ -76,9 +74,18 @@ class TransferQueueProcessor(QueueProcessorBase):
         visibility=None,  # VisibilityManager
         worker_count: int = 4,
         batch_size: int = 64,
+        standby_clusters=(),
         metrics=None,
         exhausted_retry_delay_s=None,
     ) -> None:
+        # when standby variants share this shard's task stream, they own
+        # the passive-domain tasks of THEIR clusters (this processor
+        # skips past those) and the min-ack QueueGC owns row deletion
+        # (per-task delete would starve the standby cursors). A passive
+        # task no standby plane covers is still held via DeferTask.
+        self.standby_clusters = frozenset(standby_clusters)
+        has_standby = bool(self.standby_clusters)
+        self.has_standby = has_standby
         self.shard = shard
         self.engine = engine
         self.matching = matching
@@ -105,8 +112,9 @@ class TransferQueueProcessor(QueueProcessorBase):
                 shard.shard_id, level, 2**62, n
             ),
             process_task=self._process,
-            complete_task=lambda t: (
-                shard.persistence.execution.complete_transfer_task(
+            complete_task=(
+                (lambda t: None) if has_standby
+                else lambda t: shard.persistence.execution.complete_transfer_task(
                     shard.shard_id, t.task_id
                 )
             ),
@@ -120,10 +128,16 @@ class TransferQueueProcessor(QueueProcessorBase):
     # -- dispatch ------------------------------------------------------
 
     def _process(self, task: TransferTask) -> None:
-        if self._allocator.owning_cluster(task.domain_id) is not None:
-            # the domain is active in another cluster: hold until
-            # failover makes us active (the standby plane that would own
-            # such a task is not ported)
+        owner = self._allocator.owning_cluster(task.domain_id)
+        if owner is not None:
+            if owner in self.standby_clusters:
+                # that cluster's standby variant owns this task; skip
+                # past it. On failover the service rewinds this cursor
+                # to the standby cursor and the verification-based
+                # handlers re-run the span idempotently.
+                return
+            # no standby plane covers the owning cluster: hold until
+            # failover makes us active
             raise DeferTask(task.domain_id)
         handler = {
             TransferTaskType.DecisionTask: self._process_decision,

@@ -6,18 +6,21 @@ wired to transfer/timer queue processors, a matching client for task
 pushes, and a history client for cross-shard workflow calls.
 
 A copy of the reference package's ``runtime/service.py`` without the
-planes later slices port: the standby queue processors and the queue GC,
-the replication sources and verbs, the failover listener, the reshard
-coordinator, the admin queue view, the capacity autopilot's hooks, the
-shared parallel queue executor, fault injection and the ``checkpoints``
-argument (its readers are the replication planes). The service takes no
-device: the serving plane handed in carries its own, and its own
-checkpoint plane, through which ``stop()`` drains it.
+planes later slices port: the reshard coordinator, the admin queue view,
+the capacity autopilot's hooks, the shared parallel queue executor and
+fault injection (``faults`` must be None).
+
+``device`` (default ``"cuda"``) is where the replication planes' state
+rebuilders replay: the NDC replicator's conflict rebuilds, the snapshot
+installer's and the replicator queue's snapshot server. Without a card
+the first device rebuild raises; it never slips onto the host route. The
+serving plane handed in carries its own device and its own checkpoint
+plane, through which ``stop()`` drains it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 from ..utils.clock import TimeSource
 from ..utils.log import get_logger
@@ -27,7 +30,13 @@ from .domains import DomainCache
 from .engine.engine import HistoryEngine
 from .membership import Monitor
 from .persistence.interfaces import PersistenceBundle
-from .queues import TimerQueueProcessor, TransferQueueProcessor
+from .queues import (
+    QueueGC,
+    TimerQueueProcessor,
+    TimerQueueStandbyProcessor,
+    TransferQueueProcessor,
+    TransferQueueStandbyProcessor,
+)
 from .shard import ShardContext
 
 
@@ -42,26 +51,43 @@ class HistoryService:
         monitor: Monitor,
         time_source: Optional[TimeSource] = None,
         queue_worker_count: int = 4,
+        cluster_metadata=None,
         metrics=None,
+        rebuild_chunk_size: int = 0,
+        faults=None,
         queue_exhausted_retry_delay_s: Optional[float] = None,
+        checkpoints=None,
         serving=None,
         rate_limiter=None,
+        device="cuda",
     ) -> None:
         from ..utils.metrics import Scope
+        from .queues.base import no_faults
 
+        no_faults(faults, "history service")
+        self.cluster_metadata = cluster_metadata
         self.persistence = persistence
         self.domains = domain_cache
         self.monitor = monitor
         self._time = time_source
         self._queue_workers = queue_worker_count
-        # per-task-type queue triples hang off this scope (reference
-        # common/metrics/defs.go task-type scopes); a real registry by
-        # default so tests can assert on it via service.metrics.registry
+        # per-task-type queue triples + standby hold depth + replication
+        # lag all hang off this scope (reference common/metrics/defs.go
+        # task-type scopes); a real registry by default so tests can
+        # assert on it via service.metrics.registry
         self.metrics = metrics if metrics is not None else Scope()
+        # rebuild_many device-chunk rows; 0 = the device's default
+        self.rebuild_chunk_size = rebuild_chunk_size
+        # where the replication planes' rebuilders replay
+        self.device = device
         # queue_exhausted_retry_delay_s shrinks the park interval so a
         # park-then-drain run completes at test-scale (None = the
         # production default)
         self._queue_park_delay_s = queue_exhausted_retry_delay_s
+        # checkpoint.CheckpointManager: every shard's state rebuilder
+        # resumes replays from durable snapshots and writes fresh ones.
+        # None = cold rebuilds only.
+        self.checkpoints = checkpoints
         # serving.ResidentEngine (config `serving:` section): hot
         # workflows' state rows stay device-resident; every persisted
         # event batch marks the lane behind (O(1)), serving reads
@@ -84,10 +110,28 @@ class HistoryService:
         # processors need clients; clients need the controller)
         self.matching_client = None
         self.history_client = None
+        # replication knobs (the reference's `replication:` config
+        # section: adaptive transport + pump backoff); None = defaults
+        # (adaptive on)
+        self.replication_config = None
+        # remote-cluster pull plane: cluster -> (client, fetcher,
+        # transport); each owned shard gets a ReplicationTaskProcessor
+        # per entry, all sharing the link's transport/estimator
+        self._replication_sources: Dict[str, tuple] = {}
+        # remote clusters this host stands by for (standby queue planes)
+        self.standby_clusters: List[str] = []
+        if cluster_metadata is not None:
+            self.standby_clusters = list(
+                cluster_metadata.enabled_remote_clusters()
+            )
         self.controller = ShardController(
             num_shards, persistence, domain_cache, monitor,
             engine_factory=self._build_shard, time_source=time_source,
         )
+        # failover: when a domain becomes active here, rewind the active
+        # cursors to the standby cursor of the cluster it came from so
+        # the skipped passive span is re-verified (idempotent handlers)
+        domain_cache.add_failover_listener(self._on_domain_failover)
 
     def wire(self, matching_client, history_client) -> "HistoryService":
         self.matching_client = matching_client
@@ -135,24 +179,152 @@ class HistoryService:
         engine.serving = self.serving
         engine.rate_limiter = self.rate_limiter
         engine.matching_client = self.matching_client
+        engine.cluster_metadata = self.cluster_metadata
+        engine.rebuild_chunk_size = self.rebuild_chunk_size
+        engine.device = self.device
+        engine.checkpoints = self.checkpoints
+        has_standby = bool(self.standby_clusters)
         transfer = TransferQueueProcessor(
             shard, engine, self.matching_client, self.history_client,
             worker_count=self._queue_workers,
+            standby_clusters=self.standby_clusters,
             metrics=self.metrics,
             exhausted_retry_delay_s=self._queue_park_delay_s,
         )
         timer = TimerQueueProcessor(
             shard, engine, matching=self.matching_client,
             worker_count=self._queue_workers,
+            standby_clusters=self.standby_clusters,
             metrics=self.metrics,
             exhausted_retry_delay_s=self._queue_park_delay_s,
         )
         processors = [transfer, timer]
-        engine._task_notifier = transfer.notify
-        engine._timer_notifier = timer.notify
+        notifiers = [transfer.notify]
+        timer_notifiers = [timer.notify]
+        local_cluster = (
+            self.cluster_metadata.current_cluster_name
+            if self.cluster_metadata is not None else ""
+        )
+
+        def transfer_handover(level, _t=transfer):
+            _t.ack.rewind(level)
+            _t.notify()
+
+        def timer_handover(level, _t=timer):
+            _t.ack.rewind(level)
+            _t.notify()
+
+        for cluster in self.standby_clusters:
+            ts = TransferQueueStandbyProcessor(
+                shard, engine, cluster, local_cluster=local_cluster,
+                on_handover=transfer_handover, metrics=self.metrics,
+                exhausted_retry_delay_s=self._queue_park_delay_s,
+            )
+            tm = TimerQueueStandbyProcessor(
+                shard, engine, cluster, local_cluster=local_cluster,
+                on_handover=timer_handover, metrics=self.metrics,
+                exhausted_retry_delay_s=self._queue_park_delay_s,
+            )
+            processors += [ts, tm]
+            notifiers.append(ts.notify)
+            timer_notifiers.append(tm.notify)
+        if has_standby:
+            processors.append(QueueGC(
+                shard, transfer, timer, self.standby_clusters
+            ))
+        engine._task_notifier = lambda: [n() for n in notifiers]
+        engine._timer_notifier = lambda: [n() for n in timer_notifiers]
+        # pull-replication consumers: one per registered source cluster
+        # (reference replicationTaskProcessor per shard per remote).
+        # AFTER the notifier assignment: touching engine.ndc_replicator
+        # materializes it with whatever notifiers exist at that moment
+        for cluster, (client, fetcher, transport) in (
+            self._replication_sources.items()
+        ):
+            from .replication import (
+                HistoryRereplicator,
+                ReplicationTaskProcessor,
+            )
+
+            rerepl = HistoryRereplicator(
+                client, engine.ndc_replicator, transport=transport,
+                metrics=self.metrics,
+            )
+            rc = self.replication_config
+            processors.append(
+                ReplicationTaskProcessor(
+                    shard, engine.ndc_replicator, fetcher,
+                    rereplicator=rerepl, metrics=self.metrics,
+                    transport=transport,
+                    backoff_max_s=(
+                        rc.backoff_max_s if rc is not None else 5.0
+                    ),
+                )
+            )
         for p in processors:
             p.start()
         return _ShardHandle(shard, engine, processors)
+
+    def enable_replication_from(self, cluster: str, client) -> None:
+        """Register a remote source cluster's pull client (an in-proc
+        adapter or rpc.RemoteClusterRPCClient) BEFORE start(): every
+        owned shard then runs a ReplicationTaskProcessor draining that
+        cluster's replicator queue (reference replicationTaskFetcher +
+        replicationTaskProcessor assembly, service/history/service.go).
+
+        The link also gets one AdaptiveTransport (estimator + mode
+        controller, shared across the shards' processors the way the
+        fetcher is) unless the `replication:` config disables it."""
+        from .replication import ReplicationTaskFetcher
+        from .replication.transport import AdaptiveTransport
+
+        rc = self.replication_config
+        transport = None
+        if rc is None or rc.adaptive:
+            transport = AdaptiveTransport(
+                client, cluster,
+                hysteresis=rc.hysteresis if rc is not None else 1.5,
+                min_dwell=rc.min_dwell if rc is not None else 2,
+                min_gap_events=(
+                    rc.min_gap_events if rc is not None else 32
+                ),
+                snapshot_bytes_prior=(
+                    rc.snapshot_bytes_prior
+                    if rc is not None else 64 * 1024.0
+                ),
+                metrics=self.metrics,
+            )
+        self._replication_sources[cluster] = (
+            client, ReplicationTaskFetcher(cluster, client), transport
+        )
+
+    def _on_domain_failover(
+        self, domain_id: str, old_cluster: str, new_cluster: str
+    ) -> None:
+        meta = self.cluster_metadata
+        if meta is None or new_cluster != meta.current_cluster_name:
+            return
+        if old_cluster not in self.standby_clusters:
+            return
+        with self.controller._lock:
+            handles = list(self.controller._handles.values())
+        for handle in handles:
+            shard = handle.shard
+            for p in handle.processors:
+                if isinstance(p, TransferQueueProcessor):
+                    p.ack.rewind(
+                        shard.get_cluster_transfer_ack_level(old_cluster)
+                    )
+                    p.notify()
+                elif isinstance(p, TimerQueueProcessor):
+                    p.ack.rewind(
+                        (shard.get_cluster_timer_ack_level(old_cluster), 0)
+                    )
+                    p.notify()
+        self._log.info(
+            f"domain {domain_id} failed over {old_cluster}->{new_cluster}; "
+            "rewound active queue cursors to standby levels"
+        )
 
     # -- serving plane -------------------------------------------------
 
@@ -213,3 +385,42 @@ class HistoryService:
             for p in handle.processors:
                 ok = p.drain(timeout_s) and ok
         return ok
+
+    # -- replication plane ---------------------------------------------
+    # Reference: handler.go GetReplicationMessages / ReplicateEventsV2.
+
+    def replicate_events_v2(self, task) -> None:
+        engine = self.controller.get_engine(task.workflow_id)
+        engine.replicate_events_v2(task)
+
+    def get_replication_messages(
+        self, shard_id: int, last_retrieved_id: int, cluster: str,
+        max_tasks=None,
+    ):
+        engine = self.controller.get_engine_for_shard(shard_id)
+        return engine.get_replication_messages(
+            cluster, last_retrieved_id, max_tasks=max_tasks
+        )
+
+    def get_workflow_history_raw(
+        self, domain_id: str, workflow_id: str, run_id: str,
+        start_event_id: int, end_event_id: int,
+    ):
+        engine = self.controller.get_engine(workflow_id)
+        return engine.get_workflow_history_raw(
+            domain_id, workflow_id, run_id, start_event_id, end_event_id
+        )
+
+    def get_replication_backlog(
+        self, shard_id: int, last_retrieved_id: int
+    ):
+        engine = self.controller.get_engine_for_shard(shard_id)
+        return engine.get_replication_backlog(last_retrieved_id)
+
+    def get_replication_checkpoint(
+        self, domain_id: str, workflow_id: str, run_id: str
+    ) -> bytes:
+        engine = self.controller.get_engine(workflow_id)
+        return engine.get_replication_checkpoint(
+            domain_id, workflow_id, run_id
+        )

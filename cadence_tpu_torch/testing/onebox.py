@@ -6,8 +6,10 @@ wired over real persistence with static membership (host/simpleMonitor
 integration tests, the serving demo and the smoke run on the card.
 
 A copy of the reference package's ``testing/onebox.py`` over the port's
-modules. ``serving=True`` builds the ``ResidentEngine`` on ``device``
-(default ``"cuda"``, which raises without a card). The planes the port
+modules. ``device`` (default ``"cuda"``, which raises without a card at
+the first device replay) is where the ``ResidentEngine`` of
+``serving=True`` runs and where the history service's replication planes
+rebuild. The planes the port
 has not yet raise ``NotImplementedError`` when asked for: the worker
 service (``start_worker``, so it defaults to False here), the capacity
 autopilot (``autopilot``), the shared parallel queue executor
@@ -116,10 +118,13 @@ class Onebox:
         self.serving = serving or None
         self.history = HistoryService(
             num_shards, self.persistence, self.domains, self.monitor,
+            cluster_metadata=self.cluster_metadata,
             queue_worker_count=queue_worker_count,
             metrics=self.metrics,
             time_source=time_source,
+            checkpoints=self.checkpoints,
             serving=self.serving,
+            device=device,
         )
         self.history_client = HistoryClient(
             self.history.controller, metrics=self.metrics

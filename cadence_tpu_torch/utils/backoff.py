@@ -7,7 +7,8 @@ and to a ScheduleActivityTask decision, the interval math
 (given a retry policy and the attempt that just failed, when does the
 next attempt start, and does the error or the expiration stop retrying;
 Cadence service/history/retry.go, getBackoffInterval), and
-``BackoffLadder``, the error backoff of the serving tick pump. The
+``BackoffLadder``, the error backoff of the serving tick pump and the
+replication pump. The
 host-operation retry loop of that module is not needed here.
 """
 
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+import random
+from typing import Optional, Sequence
 
 SECOND = 1_000_000_000
 
@@ -130,31 +132,51 @@ def next_backoff_interval_seconds(
 
 
 class BackoffLadder:
-    """Error-backoff ladder for pump loops.
+    """Error-backoff ladder for pump loops (the replication pump and the
+    serving tick pump).
 
     * ``failure()`` returns the delay to sleep after a failed cycle (the
-      current rung) and doubles the rung, capped at ``cap_s``;
+      current rung, jittered down by up to ``jitter``) and doubles the
+      rung, capped at ``cap_s``;
     * ``success()`` resets the ladder to ``base_s`` so a healed
-      dependency resumes at full cadence at once.
-
-    The reference's ladder also jitters the delay down; its only caller
-    here, the serving tick pump, asks for no jitter, so the port leaves
-    it out.
+      dependency resumes at full cadence at once;
+    * jitter is multiplicative-down (``d * (1 - jitter * rng())``) so
+      concurrent loops sharing one dead dependency don't retry in phase,
+      and the returned delay never exceeds the cap.
     """
 
-    def __init__(self, base_s: float, cap_s: float) -> None:
+    def __init__(
+        self,
+        base_s: float,
+        cap_s: float,
+        jitter: float = 0.0,
+        rng: Optional[random.Random] = None,
+    ) -> None:
         if base_s <= 0:
             raise ValueError("backoff ladder: base_s must be > 0")
         if cap_s < base_s:
             raise ValueError("backoff ladder: cap_s must be >= base_s")
+        if not 0.0 <= jitter < 1.0:
+            raise ValueError("backoff ladder: jitter must be in [0, 1)")
         self.base_s = float(base_s)
         self.cap_s = float(cap_s)
+        self.jitter = float(jitter)
+        self._rng = rng if rng is not None else random.Random()
         self._delay = self.base_s
+        self.failures = 0
+
+    @property
+    def current_s(self) -> float:
+        """The rung the next ``failure()`` will sleep (unjittered)."""
+        return self._delay
 
     def failure(self) -> float:
-        """Record a failed cycle; return the sleep delay."""
+        """Record a failed cycle; return the (jittered) sleep delay."""
+        self.failures += 1
         d = self._delay
         self._delay = min(self._delay * 2.0, self.cap_s)
+        if self.jitter:
+            d *= 1.0 - self.jitter * self._rng.random()
         return d
 
     def success(self) -> None:

@@ -7,9 +7,10 @@ exponential-bucket histogram timers, and the tagged ``Scope`` the
 rebuilder, the checkpoint plane and the serving engine write to. Timers
 bucket by powers of two from 1 µs; ``timer_stats`` returns
 ``(count, total_s, max_s)`` with ``p50``/``p99``/``avg`` (linear
-interpolation inside the winning bucket, clamped to the observed max).
-Windows, the series cap and the device metrics plane of the reference
-module are not ported.
+interpolation inside the winning bucket, clamped to the observed max);
+``snapshot()`` is the registry's debug dump, which the replication tests
+read. Windows, the series cap and the device metrics plane of the
+reference module are not ported.
 """
 
 from __future__ import annotations
@@ -187,6 +188,36 @@ class Registry:
                 if n == name and (tags is None or t == _tags_key(tags)):
                     agg.merge(hist)
         return TimerStats(agg)
+
+    def snapshot(self) -> Dict[str, Dict]:
+        # copy raw state under the lock, then do the expensive part —
+        # per-series quantile walks and key formatting — OUTSIDE it: a
+        # debug snapshot over thousands of series must not stall every
+        # serving thread's inc()/record() on the shared registry
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            timers_raw = [
+                (n, t, h.count, h.total, h.max, list(h.counts))
+                for (n, t), h in self._timers.items()
+            ]
+        timers = {}
+        for n, t, count, total, mx, counts in timers_raw:
+            h = Histogram()
+            h.count, h.total, h.max, h.counts = count, total, mx, counts
+            timers[f"{n}{dict(t)}"] = {
+                "count": count, "total_s": total, "max_s": mx,
+                "p50_s": h.quantile(0.50), "p99_s": h.quantile(0.99),
+            }
+        return {
+            "counters": {
+                f"{n}{dict(t)}": v for (n, t), v in counters.items()
+            },
+            "gauges": {
+                f"{n}{dict(t)}": v for (n, t), v in gauges.items()
+            },
+            "timers": timers,
+        }
 
 
 class Timer:

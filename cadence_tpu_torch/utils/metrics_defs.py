@@ -14,9 +14,10 @@ thread carries a sampled trace (utils/tracing.py — the unsampled path
 is one thread-local read).
 
 A copy of the reference package's ``utils/metrics_defs.py`` cut to the
-host runtime: the frontend, history and matching operation lists and
-the instrumentation. The reference's ``*_METRICS`` name catalogs are read
-only by its lint pass (``METRIC-UNDECLARED``), which is not ported.
+host runtime: the frontend, history and matching operation lists, the
+instrumentation, and the replication and failover name catalogs
+(``REPLICATION_METRICS``, ``FAILOVER_METRICS``: the names those planes
+emit). The reference's other ``*_METRICS`` catalogs wait for their planes.
 """
 
 from __future__ import annotations
@@ -75,6 +76,66 @@ MATCHING_OPS = (
     "query_workflow", "respond_query_task_completed",
     "describe_task_list", "cancel_outstanding_polls",
     "list_task_list_partitions",
+)
+
+
+# Adaptive geo-replication (runtime/replication/transport.py) extends
+# the consumer side: replication_lag_events / replication_lag_seconds
+# gauge how far the standby's APPLIED STATE trails the source (events
+# known outstanding on the link; seconds between the source clock and
+# the newest applied event), replication_mode gauges the controller's
+# link-wide mode (0 = event shipping, 1 = snapshot shipping) with
+# replication_mode_switches counting transitions (hysteresis-damped),
+# replication_bytes_shipped (tagged mode=) accounts every transfer,
+# replication_snapshots_shipped / replication_snapshot_fallbacks count
+# snapshot catch-ups and their event-path fallbacks (torn transfer,
+# stale fingerprint, divergent branch), replication_backfill_events
+# counts the deferred history bytes a snapshot owed, and
+# replication_pump_backoffs counts failed pump cycles entering the
+# capped jittered exponential backoff.
+REPLICATION_METRICS = (
+    "replication_ack_lag", "replication_tasks_applied",
+    "replication_apply_latency",
+    "replication_lag_events", "replication_lag_seconds",
+    "replication_mode", "replication_mode_switches",
+    "replication_bytes_shipped",
+    "replication_snapshots_shipped", "replication_snapshot_fallbacks",
+    "replication_backfill_events", "replication_pump_backoffs",
+    # NDC conflict-resolution observability (runtime/replication/ndc.py):
+    # branches_forked counts divergence points materialized (a fork at
+    # the LCA), conflicts_resolved counts resolutions — the incoming
+    # higher-version branch winning a rebuild-and-apply (inline or via
+    # the batched drain) or a stale lower-version batch archived onto a
+    # non-current branch. The failover drill reports read the counter
+    # as "how big was the version-branch storm this failover caused".
+    "replication_branches_forked", "replication_conflicts_resolved",
+    # continue-as-new chain successors materialized by a catch-up heal
+    # (rereplicator.py — the successor's first batch rides the
+    # predecessor's task, which snapshot/raw-history catch-ups bypass)
+    "replication_chain_heals",
+    # dynamic per-link fetch paging (transport.page_size): the emit-page
+    # cap last derived from the bandwidth/bytes-per-task EWMAs
+    "replication_fetch_page_limit",
+)
+
+# domain failover drills (runtime/replication/failover.py), emitted by
+# the coordinator under tags (layer=failover, kind=managed|forced|
+# failback, domain=...): domain_failovers counts completed drills,
+# failover_handover_ms times each drill end-to-end (histogram),
+# failover_unavailability_ms times the flip-start → new-active-observes
+# window (the span where neither side safely mints decisions),
+# failover_replication_lag_at_promote gauges the events known
+# outstanding on the inbound link when ownership flipped (0 for a
+# drained managed handover; the dead link's last view for a forced
+# promotion), and failover_conflicts_resolved accumulates the NDC
+# version-branch resolutions each drill's heal phase caused (the
+# registry delta of replication_conflicts_resolved across the drill).
+FAILOVER_METRICS = (
+    "domain_failovers",
+    "failover_handover_ms",
+    "failover_unavailability_ms",
+    "failover_replication_lag_at_promote",
+    "failover_conflicts_resolved",
 )
 
 

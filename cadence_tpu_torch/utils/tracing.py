@@ -31,9 +31,10 @@ attribute lookup and a None check.
 A copy of the reference package's ``utils/tracing.py`` without what the
 port has no caller for yet: the wire form of a context and the gRPC
 metadata helpers (with the rpc layer), the JSON string form of the
-Chrome-trace export and the module-level shortcuts (with the pprof
+Chrome-trace export and the other module shortcuts (with the pprof
 endpoints, A.14). ``chrome_trace`` stays: the admin handler's
-``dump_traces`` returns it.
+``dump_traces`` returns it; so does ``annotate``, which the replication
+planes and the link simulator call.
 """
 
 from __future__ import annotations
@@ -373,3 +374,7 @@ class Tracer:
 # the process tracer every layer shares (bootstrap configures it from
 # the telemetry: YAML section; tests reconfigure + clear per test)
 TRACER = Tracer()
+
+
+def annotate(text: str) -> None:
+    TRACER.annotate(text)

@@ -103,7 +103,36 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     engine; host-clock p50/p99 per verb (start, signal, cold and resident
     read, query, the SDK's decision), sustained qps, FSM launches by route
     and the device-busy share of a 1,024-request window;
-13. the refresh's line (``device_passes``: torch ops, no kernel of its
+13. ``replication``: the replication planes (``cadence_tpu_torch/runtime/
+    replication``, the standby queues) between two port clusters whose
+    history services rebuild on the card: (a) ``xdc``, 4 shards a side,
+    4,096 workflows started and signalled 4 times each on the active (no
+    worker: 20,480 replication tasks), the standby, down meanwhile, comes
+    up and pulls through ``enable_replication_from`` over an unthrottled
+    simulated link, every state and history equal on both sides and no
+    passive task dispatched; a managed handover, a signal a workflow on the
+    new active, the drain back (its device-busy share), both sides equal
+    again and a decision task in the new active's matching for every
+    scheduled decision; (b1) ``storm_10k``: the reference's >=10k-task
+    storm (3,334 workflows x 3 tasks) in one cycle on a 1-shard standby,
+    one ``rebuild_many`` of 3,334 on the card, every conflict closed, a
+    seeded 64 against the one-at-a-time path on a CPU box; (b2)
+    ``storm_deep``: phase 8's 256 retry_deep histories of 1,000 events
+    seeded task by task in fetch pages, then one cycle of a divergent tail
+    each (one ``rebuild_many`` of 256 replaying ~1,000 events each), every
+    state against the host replay of its new branch, a seeded 16 against
+    the one-at-a-time path, the cycle split into plan, rebuild and apply,
+    and the FSM kernel at the storm's batch against its bound; (d)
+    ``install_resume``: 64 snapshots shipped 112 signals behind their
+    run's tip, installed on the standby, the history's bytes backfilled,
+    and one ``rebuild_many`` on the installer's rebuilder resuming every
+    run from its installed row and replaying the suffix on the card, every
+    state against the host replay; (c) the reference bench's
+    ``replication_lag`` (three arms) and ``failover_drill`` cells at their
+    own sizes. FSM launches by route, counted on the launching thread with
+    no lock around the counted calls: the batched drain's conflict
+    rebuilds, the snapshot serve, the snapshot install and (d)'s resume;
+14. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -2931,6 +2960,859 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
     return dict(routes.counts)
 
 
+# -- phase 13: the replication planes ------------------------------------
+
+# phase 13, the replication planes. (a) xdc: two port clusters of 4
+# shards each (one history host a side, as phases 11-12) sharing a global
+# domain (clusters active and standby, failover version increment 10);
+# 4,096 workflows started on the active and signalled 4 times each, no
+# worker, so every write mints one replication task (20,480); the
+# standby, down meanwhile, then comes up and pulls through
+# enable_replication_from over an unthrottled simulated link; a managed
+# handover to the standby, one signal a workflow there, the drain back.
+# (b1) the >=10k-task storm of the reference's replication-storm test
+# (3,334 workflows x 3 tasks) on a 1-shard standby in one cycle. (b2) a
+# conflict storm at 1k depth: phase 8's rebuild_warm cohort (256
+# retry_deep histories of depth 1,000 from random.Random(45)) seeded at
+# version 1 in fetch pages of 512 tasks, then one cycle of a divergent
+# tail each at version 12. (c) the reference bench's replication_lag and
+# failover_drill cells at their own sizes (bench.py:2401-2402,
+# :2407-2408)
+XDC_SHARDS, XDC_WORKFLOWS, XDC_SIGNALS, XDC_PAYLOAD = 4, 4096, 4, 96
+REPL_DOMAIN, REPL_DOMAIN_ID, XDC_TASK_LIST = (
+    "repl-domain", "repl-domain-0000", "repl-tl")
+STORM10K_N, STORM10K_SAMPLE, STORM10K_SEED = 3334, 64, 13
+DEEP_N, DEEP_DEPTH, DEEP_SEED, DEEP_PAGE = 256, 1000, 45, 512
+DEEP_VERSION, DEEP_SAMPLE, DEEP_SAMPLE_SEED = 12, 16, 14
+INSTALL_N, INSTALL_BEFORE, INSTALL_AFTER = 64, 16, 112
+LAG_CELL = dict(workflows=12, signals_each=48, bytes_per_s=131072.0)
+DRILL_CELL = dict(workflows=6, signals_each=24, bytes_per_s=131072.0)
+REPL_DRAIN_S, REPL_DISPATCH_S = 600.0, 300.0
+
+
+class ReplicationRoutes:
+    """FSM launches of the replication planes, by route: the batched
+    drain's conflict rebuilds (``NDCHistoryReplicator._drain_deferred``),
+    the active side's snapshot serve
+    (``ReplicatorQueueProcessor.get_replication_checkpoint``) and the
+    standby's snapshot install (``NDCHistoryReplicator.
+    apply_state_snapshot``). A wrapped call tags its thread with its route
+    and runs unserialised; a ``DeviceDispatcher`` made under a tag hands it
+    to its run thread, and every FSM launch (``replay_cuda._launch``) on a
+    tagged thread counts to that route. ``calls`` counts the calls."""
+
+    def __init__(self, RC):
+        import threading
+
+        from cadence_tpu_torch.ops import dispatch as D
+        from cadence_tpu_torch.runtime.replication.ndc import (
+            NDCHistoryReplicator)
+        from cadence_tpu_torch.runtime.replication.replicator_queue import (
+            ReplicatorQueueProcessor)
+
+        self.RC = RC
+        self._tag = threading.local()
+        # held for an increment only, never around a call
+        self._lock = threading.Lock()
+        sites = {
+            "replication_conflict": (NDCHistoryReplicator,
+                                     "_drain_deferred"),
+            "replication_snapshot_serve": (ReplicatorQueueProcessor,
+                                           "get_replication_checkpoint"),
+            "replication_snapshot_install": (NDCHistoryReplicator,
+                                             "apply_state_snapshot"),
+        }
+        # the install drill's suffix resume on the installer's rebuilder
+        # (part (d)), run under its own route through run()
+        self.counts = dict.fromkeys(
+            [*sites, "replication_install_resume"], 0)
+        self.calls = dict.fromkeys(self.counts, 0)
+        Disp = D.DeviceDispatcher
+        self._saved = [(cls, name, getattr(cls, name))
+                       for cls, name in list(sites.values())
+                       + [(Disp, "__init__"), (Disp, "_run_pump")]]
+        self._saved_launch = RC._launch
+        for route, (cls, name) in sites.items():
+            setattr(cls, name, self._tagged(getattr(cls, name), route))
+        tag, init, run, launch = (self._tag, Disp.__init__, Disp._run_pump,
+                                  RC._launch)
+
+        def disp_init(d, *a, **k):
+            d._route = getattr(tag, "route", None)
+            init(d, *a, **k)
+
+        def disp_run(d):
+            tag.route = d._route
+            return run(d)
+
+        def counted_launch(*a, **k):
+            out = launch(*a, **k)
+            route = getattr(tag, "route", None)
+            if route is not None:
+                with self._lock:
+                    self.counts[route] += 1
+            return out
+        Disp.__init__, Disp._run_pump = disp_init, disp_run
+        RC._launch = counted_launch
+
+    def _tagged(self, fn, route):
+        tag = self._tag
+
+        def call(*a, **k):
+            prev = getattr(tag, "route", None)
+            tag.route = route
+            with self._lock:
+                self.calls[route] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                tag.route = prev
+        return call
+
+    def run(self, route, fn):
+        """``fn()`` with its thread tagged ``route``."""
+        return self._tagged(fn, route)()
+
+    def restore(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self.RC._launch = self._saved_launch
+
+
+def repl_meta(current):
+    from cadence_tpu_torch.cluster import ClusterInformation, ClusterMetadata
+
+    return ClusterMetadata(
+        failover_version_increment=10, master_cluster_name="active",
+        current_cluster_name=current,
+        cluster_info={
+            "active": ClusterInformation(initial_failover_version=1),
+            "standby": ClusterInformation(initial_failover_version=2),
+        })
+
+
+def repl_cluster(name, shards, device, domain=REPL_DOMAIN,
+                 domain_id=REPL_DOMAIN_ID):
+    """One port cluster as the reference bench wires one
+    (bench.py:650-678): memory persistence, the global domain owned by
+    the active cluster, a history service with the cluster metadata of
+    ``name`` rebuilding on ``device``, matching and the clients. Not
+    started."""
+    from types import SimpleNamespace
+
+    from cadence_tpu_torch.client import HistoryClient, MatchingClient
+    from cadence_tpu_torch.matching import MatchingEngine
+    from cadence_tpu_torch.runtime.domains import DomainCache, register_domain
+    from cadence_tpu_torch.runtime.membership import single_host_monitor
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        create_memory_bundle)
+    from cadence_tpu_torch.runtime.service import HistoryService
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    persistence = create_memory_bundle()
+    domain_id = register_domain(
+        persistence.metadata, domain, is_global=True,
+        clusters=["active", "standby"], active_cluster="active",
+        domain_id=domain_id, failover_version=1)
+    domains = DomainCache(persistence.metadata)
+    scope = Scope()
+    svc = HistoryService(
+        shards, persistence, domains, single_host_monitor(f"repl-{name}"),
+        cluster_metadata=repl_meta(name), metrics=scope, device=device)
+    hc = HistoryClient(svc.controller)
+    matching = MatchingEngine(persistence.task, hc)
+    svc.wire(MatchingClient(matching), hc)
+    return SimpleNamespace(name=name, persistence=persistence,
+                           domain=domain, domain_id=domain_id,
+                           domains=domains, svc=svc, hc=hc,
+                           matching=matching, scope=scope)
+
+
+class ReplAdapter:
+    """A remote cluster's replication verbs over an in-process peer's
+    history service; ``consumer`` names the pulling cluster to the emit
+    side's acks."""
+
+    def __init__(self, svc, consumer):
+        self.svc, self.consumer = svc, consumer
+
+    def get_replication_messages(self, shard_id, last, max_tasks=None):
+        return self.svc.get_replication_messages(
+            shard_id, last, cluster=self.consumer, max_tasks=max_tasks)
+
+    def get_workflow_history_raw(self, *a):
+        return self.svc.get_workflow_history_raw(*a)
+
+    def get_replication_backlog(self, shard_id, last):
+        return self.svc.get_replication_backlog(shard_id, last)
+
+    def get_replication_checkpoint(self, *a):
+        return self.svc.get_replication_checkpoint(*a)
+
+
+def repl_processors(svc):
+    """The history service's pull-replication consumers, shard order."""
+    from cadence_tpu_torch.runtime.replication import (
+        ReplicationTaskProcessor)
+
+    with svc.controller._lock:
+        handles = sorted(svc.controller._handles.items())
+    return [p for _, h in handles for p in h.processors
+            if isinstance(p, ReplicationTaskProcessor)]
+
+
+def repl_state(c, wf, run):
+    """One run as the reference's storm test compares it: the canonical
+    mutable-state snapshot and the version histories without branch
+    tokens, read back through the engine's cache."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+
+    engine = c.svc.controller.get_engine(wf)
+    ctx = engine.cache.get_or_create(c.domain_id, wf, run)
+    with ctx.lock:
+        ctx.clear()
+        ms = ctx.load()
+    vhs = ms.version_histories.to_dict()
+    for h in vhs["histories"]:
+        h.pop("branch_token", None)
+    return mutable_state_to_snapshot(ms), vhs
+
+
+def repl_history(c, wf, run):
+    engine = c.svc.controller.get_engine(wf)
+    events, _ = engine.get_workflow_execution_history(c.domain, wf, run)
+    return [e.to_dict() for e in events]
+
+
+def repl_mismatches(a, b, runs):
+    """(state mismatches, history mismatches) between clusters ``a`` and
+    ``b`` over ``runs``."""
+    states = hists = 0
+    for wf, run in runs.items():
+        states += repl_state(a, wf, run) != repl_state(b, wf, run)
+        hists += repl_history(a, wf, run) != repl_history(b, wf, run)
+    return states, hists
+
+
+def repl_decision_tasks(c, task_list):
+    """workflow id -> decision tasks waiting in ``c``'s matching store."""
+    tasks = c.persistence.task.get_tasks(
+        c.domain_id, task_list, 0, read_level=0, max_read_level=1 << 62,
+        batch_size=1 << 30)
+    out = {}
+    for t in tasks:
+        out[t.workflow_id] = out.get(t.workflow_id, 0) + 1
+    return out
+
+
+def repl_tips(c, runs):
+    ex = c.persistence.execution
+    out = {}
+    for wf, run in runs.items():
+        shard = c.svc.controller.shard_for(wf)
+        try:
+            out[wf] = ex.get_workflow_execution(
+                shard, c.domain_id, wf, run).next_event_id - 1
+        except Exception:
+            out[wf] = 0
+    return out
+
+
+def phase_repl_xdc(torch, device):
+    """(a): the live backlog, the catch-up, the handover and back."""
+    import numpy as np
+
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.runtime.replication import (
+        ClusterHandle, DomainFailoverCoordinator)
+    from cadence_tpu_torch.testing.faults import LinkProfile, chaos_link
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    act = repl_cluster("active", XDC_SHARDS, device)
+    sby = repl_cluster("standby", XDC_SHARDS, device)
+    links = {}
+    for c, peer in ((sby, act), (act, sby)):
+        client = chaos_link(ReplAdapter(peer.svc, c.name), LinkProfile(),
+                            seed=7)
+        links[c.name] = client.link
+        c.svc.enable_replication_from(peer.name, client)
+    # the standby is down while the backlog builds: the active's pull
+    # from it is partitioned until it comes up
+    links["active"].force_partition(True)
+    act.svc.start()
+    started = [act]
+    wfs = [f"repl-wf-{i:05d}" for i in range(XDC_WORKFLOWS)]
+    runs = {}
+    lat = {"start": [], "signal": []}
+    try:
+        t0 = time.perf_counter()
+        for wf in wfs:
+            ts = time.perf_counter()
+            runs[wf] = act.hc.start_workflow_execution(StartWorkflowRequest(
+                domain=REPL_DOMAIN, workflow_id=wf, workflow_type="repl",
+                task_list=XDC_TASK_LIST, request_id=f"req-{wf}",
+                execution_start_to_close_timeout_seconds=7200))
+            lat["start"].append(time.perf_counter() - ts)
+            for k in range(XDC_SIGNALS):
+                ts = time.perf_counter()
+                act.hc.signal_workflow_execution(SignalRequest(
+                    domain=REPL_DOMAIN, workflow_id=wf, signal_name=f"s{k}",
+                    input=b"x" * XDC_PAYLOAD, identity="repl"))
+                lat["signal"].append(time.perf_counter() - ts)
+        backlog_s = time.perf_counter() - t0
+        ex = act.persistence.execution
+        last_task = {}
+        backlog_tasks = 0
+        for s in range(XDC_SHARDS):
+            tasks = ex.get_replication_tasks(s, 0, 1 << 30)
+            backlog_tasks += len(tasks)
+            last_task[s] = max((t.task_id for t in tasks), default=0)
+        check(backlog_tasks == XDC_WORKFLOWS * (1 + XDC_SIGNALS),
+              f"the active minted {backlog_tasks} replication tasks")
+        tips = repl_tips(act, runs)
+
+        # the standby comes up and catches up; the pull pumps' cycles
+        # run under the profiler (started first) while this thread waits
+        marks = {}
+
+        def come_up():
+            marks["up"] = time.perf_counter()
+            sby.svc.start()
+            started.append(sby)
+            links["active"].force_partition(False)
+            deadline = time.monotonic() + REPL_DRAIN_S
+            procs = repl_processors(sby.svc)
+            while not all(p.fetcher.last_retrieved(p.shard.shard_id)
+                          >= last_task[p.shard.shard_id] for p in procs):
+                check(time.monotonic() < deadline,
+                      "the standby did not catch up")
+                time.sleep(0.05)
+            marks["current"] = time.perf_counter()
+            return procs
+        busy = device_busy(torch, lambda: marks.setdefault(
+            "procs", come_up()))
+        procs = marks["procs"]
+        catch_up_s = marks["current"] - marks["up"]
+        t_up = marks["up"]
+        # pull until a whole round applies nothing
+        round_applied = sum(p.drain_tasks() for p in procs)
+        drained_s = time.perf_counter() - t_up
+        check(repl_tips(sby, runs) == tips,
+              "a standby run is behind the active's tip")
+        reg = sby.scope.registry
+        cyc = reg.timer_stats("replication_apply_latency")
+        catch = {
+            "backlog_tasks": backlog_tasks,
+            "backlog_events": sum(tips.values()),
+            "backlog_bytes": links["standby"].bytes_total,
+            "link_transfers": links["standby"].snapshot()["transfers"],
+            "backlog_write_s": backlog_s,
+            "start_ms": percentiles(np, [x * 1e3 for x in lat["start"]]),
+            "signal_ms": percentiles(np, [x * 1e3 for x in lat["signal"]]),
+            "catch_up_s": catch_up_s, "drained_s": drained_s,
+            "tasks_applied_per_s": backlog_tasks / catch_up_s,
+            "tasks_applied_counter": reg.counter_value(
+                "replication_tasks_applied"),
+            "residual_round_tasks": round_applied,
+            "apply_cycles": cyc.count,
+            "apply_cycle_p50_ms": cyc.p50 * 1e3,
+            "apply_cycle_p99_ms": cyc.p99 * 1e3,
+            "device_busy": busy,
+        }
+        states, hists = repl_mismatches(act, sby, runs)
+        held = repl_decision_tasks(sby, XDC_TASK_LIST)
+        catch.update(state_mismatches=states, history_mismatches=hists,
+                     standby_matching_tasks=sum(held.values()))
+        check(states == 0 and hists == 0,
+              f"after the catch-up: {states} states and {hists} histories "
+              "differ between the clusters")
+        check(not held, "the standby dispatched a passive domain's task")
+
+        # the managed handover to the standby, a signal a workflow on the
+        # new active, the drain back
+        fo_scope = Scope()
+        coord = DomainFailoverCoordinator(
+            repl_meta("active"),
+            [ClusterHandle(
+                name=c.name, metadata=c.persistence.metadata,
+                domains=c.domains, history=c.svc,
+                processors=repl_processors(c.svc),
+                transport=c.svc._replication_sources[peer][2],
+                registry=c.scope.registry)
+             for c, peer in ((act, "standby"), (sby, "active"))],
+            metrics=fo_scope, drain_timeout_s=REPL_DRAIN_S)
+        report = coord.managed_handover(REPL_DOMAIN, "standby")
+        t0 = time.perf_counter()
+        lat_new = []
+        for wf in wfs:
+            ts = time.perf_counter()
+            sby.hc.signal_workflow_execution(SignalRequest(
+                domain=REPL_DOMAIN, workflow_id=wf, signal_name="after",
+                input=b"y" * XDC_PAYLOAD, identity="repl"))
+            lat_new.append(time.perf_counter() - ts)
+        signal_s = time.perf_counter() - t0
+        t_back = time.perf_counter()
+        back_tasks = coord.await_convergence(REPL_DOMAIN)
+        back_s = time.perf_counter() - t_back
+        tips = repl_tips(sby, runs)
+        check(repl_tips(act, runs) == tips,
+              "an old-active run is behind the new active's tip")
+        # the new active dispatches every held decision: one decision
+        # task a workflow whose decision is scheduled
+        deadline = time.monotonic() + REPL_DISPATCH_S
+        while True:
+            dispatched = repl_decision_tasks(sby, XDC_TASK_LIST)
+            if len(dispatched) >= len(wfs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        dispatch_s = time.perf_counter() - t0
+        scheduled = [wf for wf in wfs
+                     if repl_state(sby, wf, runs[wf])[0]["exec"][
+                         "dec_schedule_id"] > 0]
+        states, hists = repl_mismatches(act, sby, runs)
+        back = {
+            "handover": report.to_dict(),
+            "new_active_signals": len(lat_new),
+            "new_active_signal_ms": percentiles(np, [x * 1e3 for x in lat_new]),
+            "new_active_signal_s": signal_s,
+            "drain_back_tasks": back_tasks, "drain_back_s": back_s,
+            "decisions_scheduled": len(scheduled),
+            "decision_tasks_dispatched": sum(dispatched.values()),
+            "workflows_with_decision_task": len(dispatched),
+            "dispatch_wait_s": dispatch_s,
+            "state_mismatches": states, "history_mismatches": hists,
+            "bytes_back": links["active"].bytes_total,
+        }
+        check(report.replication_lag_at_promote == 0,
+              f"replication lag {report.replication_lag_at_promote} at "
+              "promote")
+        check(states == 0 and hists == 0,
+              f"after the drain back: {states} states and {hists} "
+              "histories differ")
+        lost = [wf for wf in scheduled if wf not in dispatched]
+        check(len(scheduled) == len(wfs) and not lost,
+              f"{len(lost)} scheduled decisions lost in the handover")
+        return {"catch_up": catch, "handover_and_back": back}
+    finally:
+        # the pull pumps first: each pulls from the other cluster
+        for c in started:
+            for p in repl_processors(c.svc):
+                p.stop()
+        for c in started:
+            c.svc.stop()
+            c.matching.shutdown()
+
+
+def storm_box(device):
+    """The reference storm test's standby: one shard, the standby's
+    cluster metadata, the storm domain owned by the active."""
+    c = repl_cluster("standby", 1, device, domain="storm-domain",
+                     domain_id="storm-domain-0000")
+    c.svc.start()
+    c.engine = c.svc.controller.get_engine_for_shard(0)
+    return c
+
+
+def storm_stop(c):
+    c.svc.stop()
+    c.matching.shutdown()
+
+
+def spy_rebuilds(rb, record):
+    """Record the rebuilder's calls: ("many", n, use_device, wall s) and
+    ("one", 1, False, 0)."""
+    many, one = rb.rebuild_many, rb.rebuild
+
+    def spy_many(reqs, use_device=True):
+        t0 = time.perf_counter()
+        out = many(reqs, use_device=use_device)
+        record.append(("many", len(reqs), use_device,
+                       time.perf_counter() - t0))
+        return out
+
+    def spy_one(req):
+        record.append(("one", 1, False, 0.0))
+        return one(req)
+
+    rb.rebuild_many, rb.rebuild = spy_many, spy_one
+
+
+def storm_processor(c, client):
+    from cadence_tpu_torch.runtime.replication import (
+        ReplicationTaskFetcher, ReplicationTaskProcessor)
+
+    return ReplicationTaskProcessor(
+        c.engine.shard, c.engine.ndc_replicator,
+        ReplicationTaskFetcher("active", client))
+
+
+def one_at_a_time(tasks, wfs):
+    """The sampled workflows' tasks applied one at a time on a CPU box
+    (inline host rebuilds): their states."""
+    box = storm_box("cpu")
+    try:
+        keep = {wf for wf, _ in wfs}
+        for t in tasks:
+            if t.workflow_id in keep:
+                box.engine.ndc_replicator.apply_events(t)
+        return {wf: repl_state(box, wf, run) for wf, run in wfs}
+    finally:
+        storm_stop(box)
+
+
+def phase_repl_storm10k(device):
+    """(b1): 10,002 tasks in one cycle, one rebuild_many of 3,334."""
+    from cadence_tpu_torch.testing.replication_storm import (
+        BacklogClient, decision_storm)
+
+    box = storm_box(device)
+    try:
+        tasks, wfs = decision_storm(box.domain_id, STORM10K_N)
+        proc = storm_processor(box, BacklogClient(tasks))
+        record = []
+        spy_rebuilds(box.engine.ndc_replicator.rebuilder, record)
+        t0 = time.perf_counter()
+        applied = proc.drain_tasks()
+        wall = time.perf_counter() - t0
+        states = {wf: repl_state(box, wf, run) for wf, run in wfs}
+    finally:
+        storm_stop(box)
+    many = [r for r in record if r[0] == "many"]
+    ones = [r for r in record if r[0] == "one"]
+    open_ = [wf for wf, (snap, vhs) in states.items()
+             if snap["exec"]["dec_started_id"] != 3
+             or vhs["histories"][vhs["current_index"]]["items"][-1]
+             != [3, 12]]
+    sample = random.Random(STORM10K_SEED).sample(wfs, STORM10K_SAMPLE)
+    want = one_at_a_time(tasks, sample)
+    mism = sum(states[wf] != want[wf] for wf, _ in sample)
+    rec = {"workflows": STORM10K_N, "tasks": len(tasks), "applied": applied,
+           "wall_s": wall, "tasks_per_s": len(tasks) / wall,
+           "rebuild_many": [r[:3] for r in many],
+           "rebuild_many_s": sum(r[3] for r in many),
+           "host_rebuilds": len(ones), "conflicts_open": len(open_),
+           "sample": STORM10K_SAMPLE, "sample_mismatches": mism}
+    check(applied == len(tasks), f"(b1) applied {applied} of {len(tasks)}")
+    check([r[:3] for r in many] == [("many", STORM10K_N, True)] and not ones,
+          f"(b1) rebuilds {record[:4]}: not one rebuild_many of "
+          f"{STORM10K_N} on the device")
+    check(not open_, f"(b1) {len(open_)} conflicts left open")
+    check(mism == 0, f"(b1) {mism} sampled states differ from the "
+          "one-at-a-time path")
+    return rec
+
+
+def deep_histories():
+    """Phase 8's rebuild_warm cohort at version 1."""
+    from cadence_tpu_torch.testing import workloads as W
+
+    rng = random.Random(DEEP_SEED)
+    return [(f"wf-deep-{i:03d}", f"run-deep-{i:03d}",
+             W.retry_deep_history(rng, v=1, depth=DEEP_DEPTH))
+            for i in range(DEEP_N)]
+
+
+def phase_repl_deep(device):
+    """(b2): the seeding, the storm cycle and its split, every rebuilt
+    state against the host replay. Returns the record and the forked
+    branches the storm's rebuild replayed."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+    from cadence_tpu_torch.testing.replication_storm import (
+        BacklogClient, conflict_storm)
+
+    hs = deep_histories()
+    box = storm_box(device)
+    try:
+        seed, storm = conflict_storm(box.domain_id, hs, DEEP_VERSION)
+        client = BacklogClient(seed, page=DEEP_PAGE)
+        proc = storm_processor(box, client)
+        t0 = time.perf_counter()
+        seeded = proc.drain_tasks(max_rounds=1 << 20)
+        seed_s = time.perf_counter() - t0
+        check(seeded == len(seed), f"(b2) seeded {seeded} of {len(seed)}")
+
+        ndc = box.engine.ndc_replicator
+        record, marks = [], {}
+        spy_rebuilds(ndc.rebuilder, record)
+        drain = ndc._drain_deferred
+
+        def timed_drain(deferred, order):
+            marks["drain0"] = time.perf_counter()
+            drain(deferred, order)
+            marks["drain1"] = time.perf_counter()
+        ndc._drain_deferred = timed_drain
+        reg = box.scope.registry
+        before = {k: reg.timer_stats(k).total_s
+                  for k in ("history_read", "dispatch_wait", "rehydrate")}
+        client.extend(storm)
+        marks["cycle0"] = time.perf_counter()
+        applied = proc.process_once()
+        cycle_s = time.perf_counter() - marks["cycle0"]
+        check(proc.process_once() == 0, "(b2) the storm took two cycles")
+        split = {k: reg.timer_stats(k).total_s - before[k] for k in before}
+        many = [r for r in record if r[0] == "many"]
+        ones = [r for r in record if r[0] == "one"]
+        rebuild_s = sum(r[3] for r in many)
+        # every rebuilt workflow against the host StateBuilder replay of
+        # its new current branch
+        oracle = StateRebuilder(box.persistence.history, device="cpu")
+        mism = 0
+        t0 = time.perf_counter()
+        states = {}
+        for wf, run, _ in hs:
+            ctx = box.engine.cache.get_or_create(box.domain_id, wf, run)
+            with ctx.lock:
+                ctx.clear()
+                ms = ctx.load()
+            cur = ms.version_histories.get_current_version_history()
+            want, _, _ = oracle.rebuild(RebuildRequest(
+                box.domain_id, wf, run, cur.branch_token))
+            mism += (mutable_state_to_snapshot(ms)
+                     != mutable_state_to_snapshot(want))
+            states[wf] = repl_state(box, wf, run)
+        oracle_s = time.perf_counter() - t0
+    finally:
+        storm_stop(box)
+    sample = random.Random(DEEP_SAMPLE_SEED).sample(
+        [(wf, run) for wf, run, _ in hs], DEEP_SAMPLE)
+    want = one_at_a_time(seed + storm, sample)
+    sample_mism = sum(states[wf] != want[wf] for wf, _ in sample)
+    forks = [(wf, run, b[:-1]) for wf, run, b in hs]
+    replayed = sum(sum(len(b) for b in bs) for _, _, bs in forks)
+    plan_s = marks["drain0"] - marks["cycle0"]
+    rec = {
+        "histories": DEEP_N, "depth": DEEP_DEPTH,
+        "seed_tasks": len(seed), "seed_events": sum(
+            len(t.events) for t in seed),
+        "seed_page": DEEP_PAGE, "seed_wall_s": seed_s,
+        "seed_tasks_per_s": len(seed) / seed_s,
+        "storm_tasks": len(storm), "applied": applied,
+        "storm_cycle_s": cycle_s,
+        "split_s": {
+            "plan": plan_s,
+            "rebuild_many": rebuild_s,
+            "rebuild_many_read": split["history_read"],
+            "rebuild_many_dispatch": split["dispatch_wait"],
+            "rebuild_many_rehydrate": split["rehydrate"],
+            "apply": marks["drain1"] - marks["drain0"] - rebuild_s,
+        },
+        "events_replayed": replayed,
+        "conflicts_resolved_per_s": DEEP_N / cycle_s,
+        "rebuild_many": [r[:3] for r in many], "host_rebuilds": len(ones),
+        "host_replay_mismatches": mism, "host_replay_s": oracle_s,
+        "sample": DEEP_SAMPLE, "sample_mismatches": sample_mism,
+    }
+    check(applied == len(storm), f"(b2) applied {applied} of {len(storm)}")
+    check([r[:3] for r in many] == [("many", DEEP_N, True)] and not ones,
+          f"(b2) rebuilds {record[:4]}: not one rebuild_many of {DEEP_N} "
+          "on the device")
+    check(mism == 0, f"(b2) {mism} rebuilt states differ from the host "
+          "replay")
+    check(sample_mism == 0, f"(b2) {sample_mism} sampled states differ "
+          "from the one-at-a-time path")
+    return rec, forks
+
+
+def phase_repl_install(device, routes):
+    """(d): a shipped snapshot behind the run's tip, resumed on the card.
+    The active serves each run's snapshot after ``INSTALL_BEFORE`` signals
+    and then takes ``INSTALL_AFTER`` more; the standby installs the
+    snapshot (``apply_state_snapshot``: a tip hit, since its request ends
+    at the snapshot's own event) and takes the history's bytes through the
+    active's tip (``backfill_history``). The installer's rebuilder
+    (``NDCHistoryReplicator._snapshot_rebuilder``) then brings every run to
+    that tip in one ``rebuild_many``: it resumes from the installed row and
+    replays the suffix on the card. Every state against the host replay of
+    the whole stored history."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+    from cadence_tpu_torch.runtime.replication.transport import (
+        decode_checkpoint_wire)
+
+    act = repl_cluster("active", 1, device)
+    sby = repl_cluster("standby", 1, device)
+    started = []
+    try:
+        for c in (act, sby):
+            c.svc.start()
+            started.append(c)
+
+        def signal(wf, n, tag):
+            for k in range(n):
+                act.hc.signal_workflow_execution(SignalRequest(
+                    domain=REPL_DOMAIN, workflow_id=wf,
+                    signal_name=f"{tag}{k}", input=b"z" * XDC_PAYLOAD,
+                    identity="install"))
+        wfs = [f"install-wf-{i:03d}" for i in range(INSTALL_N)]
+        runs, blobs = {}, {}
+        for wf in wfs:
+            runs[wf] = act.hc.start_workflow_execution(StartWorkflowRequest(
+                domain=REPL_DOMAIN, workflow_id=wf, workflow_type="install",
+                task_list=XDC_TASK_LIST, request_id=f"req-{wf}",
+                execution_start_to_close_timeout_seconds=7200))
+            signal(wf, INSTALL_BEFORE, "b")
+            blobs[wf] = act.svc.get_replication_checkpoint(
+                act.domain_id, wf, runs[wf])
+            signal(wf, INSTALL_AFTER, "a")
+        ndc = sby.svc.controller.get_engine(wfs[0]).ndc_replicator
+        reqs, snap_tips, tips = [], [], []
+        for wf in wfs:
+            ckpt = decode_checkpoint_wire(blobs[wf])
+            res = ndc.apply_state_snapshot(sby.domain_id, wf, runs[wf], ckpt)
+            check(res is not None, f"(d) the standby refused {wf}'s "
+                  "snapshot")
+            batches, items = act.svc.get_workflow_history_raw(
+                act.domain_id, wf, runs[wf], 1, 1 << 60)
+            ndc.backfill_history(sby.domain_id, wf, runs[wf], batches)
+            token = sby.persistence.execution.get_workflow_execution(
+                0, sby.domain_id, wf, runs[wf]).snapshot[
+                    "execution_info"]["branch_token"]
+            reqs.append(RebuildRequest(
+                sby.domain_id, wf, runs[wf],
+                token.encode() if isinstance(token, str) else token,
+                version_history_items=[(it["event_id"], it["version"])
+                                       for it in items]))
+            snap_tips.append(ckpt.event_id)
+            tips.append(items[-1]["event_id"])
+        rb, _ = ndc._snapshot_rebuilder()
+        reg = sby.scope.registry
+        saved0 = reg.counter_value("events_replayed_saved")
+        launches0 = routes.counts["replication_install_resume"]
+        t0 = time.perf_counter()
+        rebuilt = routes.run("replication_install_resume",
+                             lambda: rb.rebuild_many(reqs))
+        resume_s = time.perf_counter() - t0
+        launches = routes.counts["replication_install_resume"] - launches0
+        saved = reg.counter_value("events_replayed_saved") - saved0
+        oracle = StateRebuilder(sby.persistence.history, device="cpu")
+        mism = behind = 0
+        for req, tip, got in zip(reqs, tips, rebuilt):
+            want, _, _ = oracle.rebuild(req)
+            behind += got is None or got[0].next_event_id - 1 != tip
+            mism += got is None or (mutable_state_to_snapshot(got[0])
+                                    != mutable_state_to_snapshot(want))
+    finally:
+        for c in started:
+            c.svc.stop()
+            c.matching.shutdown()
+    rec = {"workflows": INSTALL_N, "signals_before": INSTALL_BEFORE,
+           "signals_after": INSTALL_AFTER,
+           "snapshot_event_id": [min(snap_tips), max(snap_tips)],
+           "tip_event_id": [min(tips), max(tips)],
+           "suffix_events": sum(tips) - sum(snap_tips),
+           "events_replayed_saved": saved, "resume_s": resume_s,
+           "fsm_launches": launches, "behind_tip": behind,
+           "host_replay_mismatches": mism}
+    check(all(t < u for t, u in zip(snap_tips, tips)),
+          "(d) a shipped snapshot is not behind its run's tip")
+    check(launches > 0, "(d) the suffix resume launched no FSM kernel")
+    check(saved == sum(snap_tips), f"(d) the resume saved {saved} events, "
+          f"not the {sum(snap_tips)} the snapshots cover")
+    check(behind == 0 and mism == 0, f"(d) {behind} runs behind the tip, "
+          f"{mism} states differ from the host replay")
+    return rec
+
+
+def time_storm_kernel(torch, np, S, P, RC, forks):
+    """The FSM kernel at (b2)'s storm batch: the forked branches (every
+    event before each divergent tail), packed as the dispatcher packs
+    them at the rebuilder's default capacities."""
+    from cadence_tpu_torch.ops.dispatch import depth_buckets
+
+    caps = S.Capacities()
+    packs = [(None, P.pack_lanes(bhs, caps=caps,
+                                 target_lane_len=REBUILD_LANE_LEN,
+                                 seg_align=16), None)
+             for _, bhs in depth_buckets(forks)]
+    rec = time_packed(torch, np, S, RC, caps, packs)
+    for r in rec:
+        r["R_pad"] = RC.RowMap(caps).rows_padded
+        r["lanes_per_block"] = RC.lanes_per_block(r["R_pad"], r["lanes"])
+    return rec
+
+
+def phase_replication(torch, np, S, P, RC, smi, device="cuda"):
+    """Phase 13: the port's replication planes on the card. Returns FSM
+    launches by route and the kernel's timing at (b2)'s storm batch."""
+    from cadence_tpu_torch.testing.replication_cells import (
+        failover_drill, replication_lag)
+
+    t_phase = time.perf_counter()
+    routes = ReplicationRoutes(RC)
+    start = RC.replay_rows.launches
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        xdc = phase_repl_xdc(torch, device)
+        walls["xdc"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "xdc",
+              "shards": XDC_SHARDS, "workflows": XDC_WORKFLOWS,
+              "signals_each": XDC_SIGNALS, **xdc, "wall_s": walls["xdc"],
+              "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        b1 = phase_repl_storm10k(device)
+        walls["storm_10k"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "storm_10k", **b1,
+              "part_wall_s": walls["storm_10k"], "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        b2, forks = phase_repl_deep(device)
+        walls["storm_deep"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "storm_deep", **b2,
+              "part_wall_s": walls["storm_deep"], "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        install = phase_repl_install(device, routes)
+        walls["install_resume"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "install_resume", **install,
+              "part_wall_s": walls["install_resume"], "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        lag = replication_lag(**LAG_CELL, device=device)
+        walls["replication_lag"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "replication_lag",
+              "cell": LAG_CELL, **lag, "part_wall_s":
+              walls["replication_lag"], "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        drill = failover_drill(**DRILL_CELL, device=device)
+        walls["failover_drill"] = time.perf_counter() - t0
+        emit({"phase": "replication", "part": "failover_drill",
+              "cell": DRILL_CELL, **drill, "part_wall_s":
+              walls["failover_drill"], "nvidia_smi": smi})
+    finally:
+        routes.restore()
+    total = RC.replay_rows.launches - start
+    # the kernel at (b2)'s batch against its bound, outside the counted
+    # window
+    storm_kernel = (time_storm_kernel(torch, np, S, P, RC, forks)
+                    if device == "cuda" else [])
+    emit({"phase": "replication", "part": "storm_kernel",
+          "packed_route": storm_kernel, "nvidia_smi": smi})
+    emit({"phase": "replication", "part": "routes",
+          "fsm_launches": dict(routes.counts), "calls": dict(routes.calls),
+          "fsm_launches_total": total, "walls_s": walls,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    for arm in ("events", "snapshot", "adaptive"):
+        check(lag[arm]["converged"], f"replication_lag {arm} did not "
+              "converge")
+    check(lag["snapshot"]["snapshots_shipped"] > 0,
+          "the snapshot arm shipped no snapshot")
+    check(drill["slo"]["met"], f"failover_drill slo missed: {drill['slo']}")
+    check(sum(routes.counts.values()) == total,
+          f"{total - sum(routes.counts.values())} FSM launches of the "
+          "phase outside its routes")
+    for route in ("replication_conflict", "replication_snapshot_serve",
+                  "replication_install_resume"):
+        check(routes.counts[route] > 0,
+              f"the replication phase made no {route} launch")
+    check(routes.calls["replication_snapshot_install"] > 0,
+          "the replication phase installed no snapshot")
+    return dict(routes.counts), storm_kernel
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3170,7 +4052,12 @@ def main() -> int:
     # counted by route inside the phase
     frontend_launches = phase_frontend(torch, np, S, RC, smi)
 
-    # 13. kernels and device
+    # 13. the replication planes between two port clusters, launches
+    # counted by route inside the phase
+    replication_launches, storm_kernel = phase_replication(
+        torch, np, S, P, RC, smi)
+
+    # 14. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -3184,7 +4071,8 @@ def main() -> int:
         "launches": launches + launches_rebuild + sum(
             serve_launches.values()) + sum(parallel_launches.values())
         + sum(service_launches.values())
-        + sum(frontend_launches.values()),
+        + sum(frontend_launches.values())
+        + sum(replication_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -3203,6 +4091,10 @@ def main() -> int:
         "rebuild_bound_ms": rk["int32"]["bound_ms"],
         "rebuild_bound_ms_int16": rk["int16"]["bound_ms"],
         "rebuild_shape": f"T={rk['T']} L={rk['lanes']} R_pad={rk['R_pad']}",
+        "storm_ms": [r["int32"]["ms"] for r in storm_kernel],
+        "storm_bound_ms": [r["int32"]["bound_ms"] for r in storm_kernel],
+        "storm_shape": [f"T={r['T']} L={r['lanes']} R_pad={r['R_pad']}"
+                        for r in storm_kernel],
         "tick_ms": tick_kernel["ms"], "tick_plain_ms": tick_kernel["plain_ms"],
         "tick_bound_ms": tick_kernel["bound_ms"],
         "tick_shape": f"T={tick_kernel['T']} L={tick_kernel['lanes']} "
@@ -3213,7 +4105,8 @@ def main() -> int:
                               "replay_stream[unbucketed]": launches_hist,
                               "rebuild_many": launches_rebuild,
                               **serve_launches, **parallel_launches,
-                              **service_launches, **frontend_launches},
+                              **service_launches, **frontend_launches,
+                              **replication_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

@@ -160,7 +160,10 @@ class _Side:
     def rec(self, name, fn):
         # a millisecond a call: start and close times order the
         # visibility lists, whose ties would fall to the queues' thread
-        # order; the script's whole run stays short of any timer
+        # order; the script's whole run stays short of any timer. The
+        # queues drain first: a close task reads the shard clock when its
+        # queue gets to it, which must be before the clock moves on
+        assert self.box.history.drain_queues(20.0)
         self.clock.advance(1_000_000)
         try:
             out = fn()
@@ -567,8 +570,6 @@ def test_port_admin_refuses_unported_planes():
                      lambda: box.admin.reshard_merge(0, 1),
                      box.admin.reshard_status,
                      lambda: box.admin.describe_queue_states(0),
-                     lambda: box.admin.get_workflow_execution_raw_history(
-                         "d", "w", "r"),
                      box.admin.autopilot_status):
             with pytest.raises(BadRequestError, match="not"):
                 call()

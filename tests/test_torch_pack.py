@@ -203,9 +203,10 @@ def test_import_hygiene():
     kernel's wrapper, the rebuilder, the checkpoint plane, the serving
     plane, the device task refresh, the native sidecar, the history
     host (service, matching, clients), the frontend, the worker SDK,
-    visibility, archival, the cluster metadata, the message bus and the
-    onebox and serving-demo twins included, loads neither jax nor the
-    reference package."""
+    visibility, archival, the cluster metadata, the message bus, the
+    replication planes, the standby queues, the wire codec, the link
+    simulator and the onebox and serving-demo twins included, loads
+    neither jax nor the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -226,6 +227,10 @@ def test_import_hygiene():
         "import cadence_tpu_torch.cluster, cadence_tpu_torch.messaging\n"
         "import cadence_tpu_torch.testing.onebox\n"
         "import cadence_tpu_torch.testing.serve_demo\n"
+        "import cadence_tpu_torch.runtime.replication\n"
+        "import cadence_tpu_torch.runtime.queues.standby\n"
+        "import cadence_tpu_torch.rpc, cadence_tpu_torch.testing.faults\n"
+        "import cadence_tpu_torch.utils.task_processor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"
