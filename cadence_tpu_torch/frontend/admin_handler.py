@@ -5,11 +5,7 @@ DescribeHistoryHost (shard distribution), CloseShard, RemoveTask,
 raw history reads for replication debugging, and an admin
 DescribeWorkflowExecution exposing the shard id + raw mutable state.
 
-A copy of the reference package's ``frontend/admin_handler.py``. The
-verbs of planes the port has not yet (resharding, the admin queue view)
-raise ``BadRequestError`` as the reference's handler raises on a host
-without them; the autopilot's verbs raise through the same check as the
-reference's, since the port's history service has no autopilot.
+A copy of the reference package's ``frontend/admin_handler.py``.
 """
 
 from __future__ import annotations
@@ -20,10 +16,6 @@ from ..runtime.api import BadRequestError, EntityNotExistsServiceError
 from ..runtime.persistence.errors import EntityNotExistsError
 
 
-def _not_ported(plane: str) -> BadRequestError:
-    return BadRequestError(f"{plane} is not available on this host")
-
-
 class AdminHandler:
     def __init__(self, history_service, domain_cache, bus=None) -> None:
         self.history = history_service
@@ -32,19 +24,37 @@ class AdminHandler:
         # run the messaging plane)
         self.bus = bus
 
-    # -- elastic resharding ------------------------------------------
+    # -- elastic resharding (runtime/resharding.py) --------------------
+
+    @property
+    def resharder(self):
+        """The host's shared reshard coordinator — built and owned by
+        ``HistoryService.reshard_coordinator()`` so the admin verbs and
+        the capacity autopilot serialize plans on the SAME coordinator
+        lock (one plan at a time is a host property, not a caller
+        property). Multi-host in-process clusters build their own
+        coordinator spanning every controller."""
+        return self.history.reshard_coordinator()
 
     def reshard_split(self, shard_id: int) -> Dict[str, Any]:
-        """Online shard split 1→2 (the reference's admin verb)."""
-        raise _not_ported("resharding")
+        """Online shard split 1→2 (admin verb; returns the committed
+        plan record)."""
+        self._check_resharding_enabled()
+        return self.resharder.split(int(shard_id)).to_dict()
 
     def reshard_merge(self, source_id: int, target_id: int) -> Dict[str, Any]:
         """Online shard merge 2→1."""
-        raise _not_ported("resharding")
+        self._check_resharding_enabled()
+        return self.resharder.merge(int(source_id), int(target_id)).to_dict()
 
     def reshard_status(self) -> Dict[str, Any]:
         """Current routing epoch + the last plan's write-ahead record."""
-        raise _not_ported("resharding")
+        return self.resharder.status()
+
+    def _check_resharding_enabled(self) -> None:
+        cfg = getattr(self.history, "resharding_config", None)
+        if cfg is not None and not cfg.enabled:
+            raise BadRequestError("resharding is disabled by config")
 
     # -- capacity autopilot (runtime/autopilot.py) ---------------------
 
@@ -75,8 +85,14 @@ class AdminHandler:
 
     def describe_queue_states(self, shard_id: int) -> Dict[str, Any]:
         """Per-queue cursor/depth introspection for one owned shard
-        (reference tools/cli/adminQueueCommands.go DescribeQueue)."""
-        raise _not_ported("the admin queue view")
+        (reference tools/cli/adminQueueCommands.go DescribeQueue) —
+        collection lives on HistoryService, next to describe()."""
+        try:
+            return self.history.describe_queue_states(shard_id)
+        except KeyError:
+            raise EntityNotExistsServiceError(
+                f"shard {shard_id} is not owned by this host"
+            )
 
     # -- DLQ verbs (reference tools/cli/adminDLQCommands.go over
     # adminHandler Get/Purge/MergeDLQMessages) -------------------------

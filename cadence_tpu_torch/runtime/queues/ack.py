@@ -21,6 +21,16 @@ RETRY at most ``DEFER_COALESCE_S`` after its delay. A pump that calls
 ``keep_deferred_tasks`` hands its deferred tasks in with ``defer`` and
 takes them back with ``take_retries``, instead of re-reading its whole
 held span from the ack level each time one of them is due.
+
+A fault of the reference fixed here: its ``rewind`` returns when the
+level is not below the ack level. A task above the level that was read
+and completed before the failover (skipped as the standby's) stays DONE,
+the sweep then passes it, and it never runs on the new active side: a
+worker still running a task at or below the level holds the ack level
+there, so both the failover listener's rewind and the standby plane's
+handover rewind were no-ops and the live workflow's decision was lost.
+``rewind`` now re-reads everything read above the level whatever the ack
+level is, and moves the ack level only when the level is below it.
 """
 
 from __future__ import annotations
@@ -92,6 +102,10 @@ class QueueAckManager:
         # failover drill caught exactly this: a handover rewind racing
         # an in-flight read batch lost the handed-over decision task)
         self._generation = 0
+        # the generation each entry was last taken (RUNNING) under: an
+        # executor wave collected before a rewind runs the entries the
+        # rewind kept (``holds``) and skips the ones it dropped
+        self._taken_gen: Dict[object, int] = {}
 
     def generation(self) -> int:
         """Stamp for a read batch: capture BEFORE reading, pass to
@@ -115,10 +129,12 @@ class QueueAckManager:
             state = self._outstanding.get(key)
             if state is None:
                 self._outstanding[key] = _RUNNING
+                self._taken_gen[key] = self._generation
                 self._bump_read_locked(key)
                 return True
             if state == _RETRY:
                 self._outstanding[key] = _RUNNING
+                self._taken_gen[key] = self._generation
                 if key == self._retry_min:
                     self._recompute_retry_min_locked()
                 return True
@@ -141,10 +157,12 @@ class QueueAckManager:
                 state = self._outstanding.get(key)
                 if state is None:
                     self._outstanding[key] = _RUNNING
+                    self._taken_gen[key] = self._generation
                     self._bump_read_locked(key)
                     out.append(True)
                 elif state == _RETRY:
                     self._outstanding[key] = _RUNNING
+                    self._taken_gen[key] = self._generation
                     if key == self._retry_min:
                         self._recompute_retry_min_locked()
                     out.append(True)
@@ -184,6 +202,7 @@ class QueueAckManager:
                 if self._outstanding[key] != _DONE:
                     break
                 del self._outstanding[key]
+                self._taken_gen.pop(key, None)
                 self.ack_level = key
             level = self.ack_level
             if (
@@ -195,35 +214,58 @@ class QueueAckManager:
         return level
 
     def rewind(self, level) -> None:
-        """Move the cursor back to ``level`` (failover reprocessing: the
-        new active side re-reads from the standby cursor; verification-
-        based handlers make re-execution idempotent). Persisted
-        immediately (under the lock, so no concurrent checkpoint can
-        overwrite it): a restart re-initializes from the shard cursor
-        and the failover event will not re-fire."""
+        """Re-read everything read above ``level`` (failover
+        reprocessing: the new active side re-reads from the standby
+        cursor; verification-based handlers make re-execution
+        idempotent). The ack level moves back only when ``level`` is
+        below it, and is then persisted immediately (under the lock, so
+        no concurrent checkpoint can overwrite it): a restart
+        re-initializes from the shard cursor and the failover event
+        will not re-fire. An ack level held at or below ``level`` by an
+        entry still running does not make the rewind a no-op: the
+        entries above ``level`` are dropped and re-read all the same."""
         with self._lock:
-            if level >= self.ack_level:
-                return
-            self.ack_level = level
+            above = [k for k in self._outstanding if k > level]
+            behind = level < self.ack_level
+            if not behind and not above and level >= self.read_level:
+                return  # nothing was read past the level
+            if behind:
+                self.ack_level = level
             if level < self.read_level:
                 self.read_level = level
             # completed-but-unswept entries above the rewound level must
             # not let update_ack_level jump straight back over the span
             # being re-verified
-            for key in [k for k in self._outstanding if k > level]:
+            for key in above:
                 del self._outstanding[key]
+                self._taken_gen.pop(key, None)
                 if self._held_tasks is not None:
                     self._held_tasks.pop(key, None)
+            # nor may a dropped entry's pending release hand a later
+            # entry of the same key's task away (take_retries)
+            if above:
+                gone = set(above)
+                self._retry_ready = [
+                    k for k in self._retry_ready if k not in gone]
             self._recompute_retry_min_locked()
             # invalidate any in-flight read batch: its remaining offers
             # would re-bump the read cursor over the rewound span
             self._generation += 1
-            if self._update_shard_ack is not None:
+            if behind and self._update_shard_ack is not None:
                 self._update_shard_ack(level)
                 self._persisted_level = level
             hook = self.on_read_rewind
         if hook is not None:
             hook()
+
+    def holds(self, key, generation: int) -> bool:
+        """Whether ``key`` is still the entry taken under ``generation``:
+        a rewind since then kept it (it lies at or below the rewound
+        level), rather than dropping it or letting a re-read take it
+        anew."""
+        with self._lock:
+            return (key in self._outstanding
+                    and self._taken_gen.get(key) == generation)
 
     def set_read_level(self, level, generation: Optional[int] = None) -> None:
         with self._lock:
@@ -259,16 +301,21 @@ class QueueAckManager:
             self._held_tasks = {}
             self.on_retry = on_retry
 
-    def take_retries(self) -> list:
+    def take_retries(self, generation: Optional[int] = None) -> list:
         """(key, task) of every held entry whose delay elapsed, each
-        re-taken (RUNNING) as ``add()`` would re-take it."""
+        re-taken (RUNNING) as ``add()`` would re-take it; none when
+        ``generation`` is given and a rewind has moved past it."""
         with self._lock:
             out = []
+            if generation is not None and generation != self._generation:
+                return out
             for key in self._retry_ready:
+                if self._outstanding.get(key) != _RETRY:
+                    continue  # re-taken by a read since: its task stays
                 task = self._held_tasks.pop(key, None)
-                if task is not None and \
-                        self._outstanding.get(key) == _RETRY:
+                if task is not None:
                     self._outstanding[key] = _RUNNING
+                    self._taken_gen[key] = self._generation
                     out.append((key, task))
             self._retry_ready = []
             if out:
@@ -355,6 +402,7 @@ class QueueAckManager:
         the task will be re-read before the sweep passes it (legacy
         callers); prefer defer()."""
         with self._lock:
+            self._taken_gen.pop(key, None)
             if self._outstanding.pop(key, None) == _RETRY:
                 self._recompute_retry_min_locked()
             self.read_level = self.ack_level

@@ -6,12 +6,15 @@ per-task retry). The pump wakes on notify or poll interval, reads a
 batch past the read level, hands tasks to the pool, and periodically
 checkpoints the ack level into shardInfo.
 
-A copy of the reference package's ``runtime/queues/base.py``. Fault
-injection (``make_fault_hook``) and the shared parallel executor's mode
-wait for their planes; ``no_faults`` stands where the reference builds a
-fault hook and refuses a schedule. A pump takes its deferred tasks back
-from the ack manager (``take_retries``) instead of re-reading its held
-span from the ack level when one is due.
+A copy of the reference package's ``runtime/queues/base.py``, with the
+shared parallel executor's mode (``executor``, ``parallel_collect``,
+``parallel_run``). Fault injection (``make_fault_hook``) waits for its
+plane; ``no_faults`` stands where the reference builds a fault hook and
+refuses a schedule. A pump takes its deferred tasks back from the ack
+manager (``take_retries``) instead of re-reading its held span from the
+ack level when one is due, in either mode. In executor mode the reshard
+fence also waits for the executor's waves: a batch collected before the
+pause holds ``drain`` until the executor has run it (``parallel_done``).
 """
 
 from __future__ import annotations
@@ -223,6 +226,7 @@ class QueueProcessorBase:
         poll_interval_s: float = 0.05,
         metrics: Optional[Scope] = None,
         exhausted_retry_delay_s: Optional[float] = None,
+        executor=None,
     ) -> None:
         self.name = name
         self.ack = ack
@@ -243,26 +247,46 @@ class QueueProcessorBase:
         # in-flight tasks run to completion — the drain-to-watermark
         # step of an ownership handoff
         self._paused = threading.Event()
-        self._pool = ThreadPoolExecutor(
-            max_workers=worker_count,
-            thread_name_prefix=f"{name}-worker",
-        )
-        self._pump_thread = threading.Thread(
-            target=self._pump, name=f"{name}-pump", daemon=True
-        )
+        # executor mode (an executor handed in): the shared
+        # ParallelQueueExecutor owns the pump thread and worker pool —
+        # this processor only contributes collect/run hooks. notify()
+        # must NOT set self._notify in that mode: drain() reads it as
+        # "pump has pending work", and nothing would ever clear it.
+        self._executor = executor
+        self._waves = WaveGate()
+        if executor is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=worker_count,
+                thread_name_prefix=f"{name}-worker",
+            )
+            self._pump_thread = threading.Thread(
+                target=self._pump, name=f"{name}-pump", daemon=True
+            )
+        else:
+            self._pool = None
+            self._pump_thread = None
         # a deferred task comes back through take_retries: the pump does
         # not re-read its held span from the ack level for it
         ack.keep_deferred_tasks(self.notify)
 
     def start(self) -> None:
+        if self._executor is not None:
+            self._executor.register(self)
+            return
         self._pump_thread.start()
 
     def notify(self) -> None:
+        if self._executor is not None:
+            self._executor.notify()
+            return
         self._notify.set()
 
     def stop(self) -> None:
         self._stopped.set()
         self._notify.set()
+        if self._executor is not None:
+            self._executor.unregister(self)
+            return
         self._pool.shutdown(wait=False)
 
     def drain(self, timeout_s: float = 5.0, *,
@@ -276,7 +300,7 @@ class QueueProcessorBase:
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
-            if self.ack.outstanding() == 0 and (
+            if self.ack.outstanding() == 0 and self._waves.idle() and (
                 self._paused.is_set() or not self._notify.is_set()
             ):
                 return True
@@ -287,7 +311,7 @@ class QueueProcessorBase:
 
     def pause_intake(self) -> None:
         """Stop reading new batches; in-flight tasks run to completion."""
-        self._paused.set()
+        self._waves.pause(self._paused)
 
     def resume_intake(self) -> None:
         self._paused.clear()
@@ -375,3 +399,77 @@ class QueueProcessorBase:
         except Exception:
             self._log.exception(f"queue {self.name} complete({key}) failed")
         self.ack.complete(key)
+
+    # -- parallel executor hooks ---------------------------------------
+
+    def parallel_collect(self, limit: int):
+        """Executor-mode batch read: one generation-stamped batch taken
+        through ``ack.add_batch`` but NOT executed, after the held tasks
+        whose delay elapsed (``take_retries``, taken once the read
+        succeeded) — the shared ParallelQueueExecutor schedules the
+        returned ``(task, key)`` rows into conflict waves. Mirrors one
+        ``_process_batch`` iteration (same rewind discipline: generation
+        captured before the read, cursor bump stamped with it). A
+        non-empty collect holds the reshard fence until
+        ``parallel_done``."""
+        if not self._waves.open(self._paused, self._stopped):
+            return [], 0
+        try:
+            gen = self.ack.generation()
+            batch = self._read_batch(self.ack.read_level, limit)
+            rows = []
+            if batch:
+                keys = [self._task_key(t) for t in batch]
+                taken = self.ack.add_batch(keys, generation=gen)
+                self.ack.set_read_level(keys[-1], generation=gen)
+                rows = [(t, k) for t, k, ok in zip(batch, keys, taken)
+                        if ok]
+        except Exception:
+            self._waves.close()
+            raise
+        out = [(t, k) for k, t in self.ack.take_retries(generation=gen)]
+        out += rows
+        if not out:
+            self._waves.close()
+        return out, gen
+
+    def parallel_run(self, task, key) -> None:
+        """Executor-mode execution of one collected task: the exact
+        sequential attempt path (trace span, timing, effect scope,
+        retry/park, completion)."""
+        self._run_task(task, key)
+
+    def parallel_done(self) -> None:
+        """The executor ran (or rejected as stale) every task of this
+        queue's last non-empty collect."""
+        self._waves.close()
+
+
+class WaveGate:
+    """Executor-mode collects in flight for one queue. ``open`` counts
+    a collect unless intake is paused or the queue stopped, under the
+    same lock as ``pause``, so a fence that paused intake sees every
+    collect that got past the check; ``drain`` waits for ``idle``."""
+
+    def __init__(self) -> None:
+        self._lock = make_lock("WaveGate._lock")
+        self._open = 0
+
+    def open(self, paused, stopped) -> bool:
+        with self._lock:
+            if paused.is_set() or stopped.is_set():
+                return False
+            self._open += 1
+            return True
+
+    def close(self) -> None:
+        with self._lock:
+            self._open -= 1
+
+    def pause(self, paused) -> None:
+        with self._lock:
+            paused.set()
+
+    def idle(self) -> bool:
+        with self._lock:
+            return self._open == 0

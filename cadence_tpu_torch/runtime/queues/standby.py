@@ -29,8 +29,12 @@ this cluster — re-reading the span the active processor had skipped as
 passive (ref transferQueueProcessor.go failover processor).
 
 A copy of the reference package's ``runtime/queues/standby.py``. Fault
-injection and the shared parallel executor wait for their planes:
-``faults`` must be None, and the transfer variant takes no ``executor``.
+injection waits for its plane: ``faults`` must be None. Both standby
+variants take the shared parallel executor (``executor``); the
+reference's transfer variant takes one and its timer variant does not,
+and the reference's service hands it to neither. The timer variant in
+executor mode reads its due window against the remote clock on the
+executor's cycle, as its own pump would.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from .allocator import DeferTask, defer_task
 from .base import (
     QueueProcessorBase,
     ResumeCursor,
+    WaveGate,
     no_faults,
     read_due_timers,
     run_task_attempts,
@@ -261,6 +266,7 @@ class TransferQueueStandbyProcessor(QueueProcessorBase):
         metrics=None,
         faults=None,
         exhausted_retry_delay_s=None,
+        executor=None,
     ) -> None:
         no_faults(faults, "queue.transfer-standby")
         self.shard = shard
@@ -306,6 +312,7 @@ class TransferQueueStandbyProcessor(QueueProcessorBase):
             batch_size=batch_size,
             metrics=metrics,
             exhausted_retry_delay_s=exhausted_retry_delay_s,
+            executor=executor,
         )
 
     # -- verification dispatch ----------------------------------------
@@ -451,6 +458,7 @@ class TimerQueueStandbyProcessor:
         metrics=None,
         faults=None,
         exhausted_retry_delay_s=None,
+        executor=None,
     ) -> None:
         from ...utils.metrics import NOOP
 
@@ -493,16 +501,23 @@ class TimerQueueStandbyProcessor:
         self._paused = threading.Event()  # reshard fence: intake off
         from concurrent.futures import ThreadPoolExecutor
 
-        self._pool = ThreadPoolExecutor(
-            max_workers=worker_count,
-            thread_name_prefix=f"timer-standby-{cluster}-{shard.shard_id}",
-        )
         self._batch_size = batch_size
-        self._pump_thread = threading.Thread(
-            target=self._pump,
-            name=f"timer-standby-{cluster}-{shard.shard_id}-pump",
-            daemon=True,
-        )
+        self._executor = executor
+        self._waves = WaveGate()
+        if executor is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=worker_count,
+                thread_name_prefix=(
+                    f"timer-standby-{cluster}-{shard.shard_id}"),
+            )
+            self._pump_thread = threading.Thread(
+                target=self._pump,
+                name=f"timer-standby-{cluster}-{shard.shard_id}-pump",
+                daemon=True,
+            )
+        else:
+            self._pool = None
+            self._pump_thread = None
 
     def _on_remote_time(self, cluster: str, now_ns: int) -> None:
         if cluster == self.cluster:
@@ -513,15 +528,24 @@ class TimerQueueStandbyProcessor:
         self.gate.update(0)
 
     def start(self) -> None:
+        if self._executor is not None:
+            self._executor.register(self)
+            return
         self._pump_thread.start()
 
     def notify(self) -> None:
+        if self._executor is not None:
+            self._executor.notify()
+            return
         self.gate.update(0)
 
     def stop(self) -> None:
         self._stopped.set()
         self.gate.update(0)
-        self._pool.shutdown(wait=False)
+        if self._executor is not None:
+            self._executor.unregister(self)
+        else:
+            self._pool.shutdown(wait=False)
         # detach from the shard or this dead processor stays reachable
         # (and notified) through the remote-time listener list forever
         self.shard.remove_remote_time_listener(self._on_remote_time)
@@ -532,7 +556,7 @@ class TimerQueueStandbyProcessor:
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
-            if self.ack.outstanding() == 0:
+            if self.ack.outstanding() == 0 and self._waves.idle():
                 return True
             time.sleep(0.01)
         return False
@@ -540,7 +564,7 @@ class TimerQueueStandbyProcessor:
     # -- reshard fence -------------------------------------------------
 
     def pause_intake(self) -> None:
-        self._paused.set()
+        self._waves.pause(self._paused)
 
     def resume_intake(self) -> None:
         self._paused.clear()
@@ -604,6 +628,49 @@ class TimerQueueStandbyProcessor:
         )
         if future:
             self.gate.update(future[0].visibility_timestamp)
+
+    # -- parallel executor hooks ---------------------------------------
+
+    def parallel_collect(self, limit: int):
+        """Executor-mode read of the window due on the remote clock:
+        ``_process_due``'s scan, collecting generation-stamped offers
+        instead of submitting them. A non-empty collect holds the
+        reshard fence until ``parallel_done``."""
+        if not self._waves.open(self._paused, self._stopped):
+            return [], 0
+        out = []
+        agen = 0
+        try:
+            remote_now = self.gate.current_time()
+            if remote_now > 0:
+                key, gen = self._resume.begin()
+                agen = self.ack.generation()
+                min_ts = self.ack.ack_level[0]
+
+                def offer(task, k):
+                    if self.ack.add(k, generation=agen):
+                        out.append((task, k))
+
+                self._resume.store_if_current(
+                    read_due_timers(
+                        self.shard.persistence.execution,
+                        self.shard.shard_id, min_ts, remote_now + 1,
+                        min(limit, self._batch_size), key, offer,
+                    ),
+                    gen,
+                )
+        except Exception:
+            self._waves.close()
+            raise
+        if not out:
+            self._waves.close()
+        return out, agen
+
+    def parallel_run(self, task, key) -> None:
+        self._run_task(task, key)
+
+    def parallel_done(self) -> None:
+        self._waves.close()
 
     def _run_task(self, task: TimerTask, key) -> None:
         with task_span(self.name, task), \

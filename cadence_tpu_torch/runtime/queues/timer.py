@@ -7,8 +7,11 @@ timeouts, activity retry timers, workflow backoff (cron/retry) timers,
 workflow timeout, retention-driven history deletion. The pump sleeps on
 a LocalTimerGate armed with the earliest unfired deadline.
 
-A copy of the reference package's ``runtime/queues/timer.py``. Fault
-injection and the parallel executor's mode wait for their planes.
+A copy of the reference package's ``runtime/queues/timer.py``, with the
+shared parallel executor's mode (``executor``, ``parallel_collect``):
+a non-empty collect holds the reshard fence until the executor has run
+it (``parallel_done``), as ``QueueProcessorBase`` does. Fault injection
+waits for its plane.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .ack import QueueAckManager
 from .allocator import DeferTask, TaskAllocator, defer_task
 from .base import (
     ResumeCursor,
+    WaveGate,
     read_due_timers,
     run_task_attempts,
     sweep_ack,
@@ -55,6 +59,7 @@ class TimerQueueProcessor:
         standby_clusters=(),
         metrics=None,
         exhausted_retry_delay_s=None,
+        executor=None,
     ) -> None:
         self.shard = shard
         self.engine = engine
@@ -82,29 +87,47 @@ class TimerQueueProcessor:
         self._stopped = threading.Event()
         self._paused = threading.Event()  # reshard fence: intake off
         self._batch_size = batch_size
-        self._pool = ThreadPoolExecutor(
-            max_workers=worker_count,
-            thread_name_prefix=f"timer-{shard.shard_id}",
-        )
-        self._pump_thread = threading.Thread(
-            target=self._pump, name=f"timer-{shard.shard_id}-pump",
-            daemon=True,
-        )
+        # executor mode (an executor handed in): the shared
+        # ParallelQueueExecutor polls via parallel_collect; the gate,
+        # pool, and pump thread stay unused
+        self._executor = executor
+        self._waves = WaveGate()
+        if executor is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=worker_count,
+                thread_name_prefix=f"timer-{shard.shard_id}",
+            )
+            self._pump_thread = threading.Thread(
+                target=self._pump, name=f"timer-{shard.shard_id}-pump",
+                daemon=True,
+            )
+        else:
+            self._pool = None
+            self._pump_thread = None
 
     def _drop_resume(self) -> None:
         self._resume.drop()
         self.gate.update(0)
 
     def start(self) -> None:
+        if self._executor is not None:
+            self._executor.register(self)
+            return
         self._pump_thread.start()
 
     def notify(self) -> None:
+        if self._executor is not None:
+            self._executor.notify()
+            return
         # a new timer may be earlier than anything armed: wake now
         self.gate.update(0)
 
     def stop(self) -> None:
         self._stopped.set()
         self.gate.update(0)
+        if self._executor is not None:
+            self._executor.unregister(self)
+            return
         self._pool.shutdown(wait=False)
 
     def drain(self, timeout_s: float = 5.0, *, deadline=None) -> bool:
@@ -117,7 +140,7 @@ class TimerQueueProcessor:
                 # reshard fence: quiescent once nothing is in flight —
                 # due-but-unread timers stay in the store and move to
                 # the new owner past the recorded watermark
-                if self.ack.outstanding() == 0:
+                if self.ack.outstanding() == 0 and self._waves.idle():
                     return True
                 time.sleep(0.01)
                 continue
@@ -133,7 +156,7 @@ class TimerQueueProcessor:
     # -- reshard fence -------------------------------------------------
 
     def pause_intake(self) -> None:
-        self._paused.set()
+        self._waves.pause(self._paused)
 
     def resume_intake(self) -> None:
         self._paused.clear()
@@ -195,6 +218,52 @@ class TimerQueueProcessor:
         )
         if future:
             self.gate.update(future[0].visibility_timestamp)
+
+    # -- parallel executor hooks ---------------------------------------
+
+    def parallel_collect(self, limit: int):
+        """Executor-mode due-window read: the ``_process_due`` scan with
+        collection instead of pool submission. Offers are stamped with
+        the ack generation so a rewind between this collect and the wave
+        execution rejects them (the sequential timer pump relies on the
+        resume-cursor drop for the same property; the executor checks
+        the generation explicitly before running the wave). No gate
+        arming — the executor polls on its own interval. A non-empty
+        collect holds the reshard fence until ``parallel_done``."""
+        if not self._waves.open(self._paused, self._stopped):
+            return [], 0
+        out = []
+        agen = 0
+        try:
+            now = self.shard.now()
+            key, gen = self._resume.begin()
+            agen = self.ack.generation()
+            min_ts = self.ack.ack_level[0]
+
+            def offer(task, k):
+                if self.ack.add(k, generation=agen):
+                    out.append((task, k))
+
+            self._resume.store_if_current(
+                read_due_timers(
+                    self.shard.persistence.execution, self.shard.shard_id,
+                    min_ts, now + 1, min(limit, self._batch_size), key,
+                    offer,
+                ),
+                gen,
+            )
+        except Exception:
+            self._waves.close()
+            raise
+        if not out:
+            self._waves.close()
+        return out, agen
+
+    def parallel_run(self, task, key) -> None:
+        self._run_task(task, key)
+
+    def parallel_done(self) -> None:
+        self._waves.close()
 
     _TASK_RETRY_COUNT = 3
 

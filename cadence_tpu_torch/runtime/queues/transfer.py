@@ -6,8 +6,9 @@ activity tasks to matching, record visibility, close-execution fan-out
 (parent notification + parent-close policy), external cancel/signal,
 child-workflow start.
 
-A copy of the reference package's ``runtime/queues/transfer.py``. Fault
-injection and the parallel executor's mode wait for their planes.
+A copy of the reference package's ``runtime/queues/transfer.py``, with
+the shared parallel executor's mode (``executor``). Fault injection
+waits for its plane.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ class TransferQueueProcessor(QueueProcessorBase):
         standby_clusters=(),
         metrics=None,
         exhausted_retry_delay_s=None,
+        executor=None,
     ) -> None:
         # when standby variants share this shard's task stream, they own
         # the passive-domain tasks of THEIR clusters (this processor
@@ -123,6 +125,7 @@ class TransferQueueProcessor(QueueProcessorBase):
             batch_size=batch_size,
             metrics=metrics,
             exhausted_retry_delay_s=exhausted_retry_delay_s,
+            executor=executor,
         )
 
     # -- dispatch ------------------------------------------------------

@@ -5,14 +5,18 @@ the history service owns a shard controller whose per-shard engines are
 wired to transfer/timer queue processors, a matching client for task
 pushes, and a history client for cross-shard workflow calls.
 
-A copy of the reference package's ``runtime/service.py`` without the
-planes later slices port: the reshard coordinator, the admin queue view,
-the capacity autopilot's hooks, the shared parallel queue executor and
-fault injection (``faults`` must be None).
+A copy of the reference package's ``runtime/service.py``: the shared
+parallel queue executor (``queue_executor``), the host's one reshard
+coordinator (``reshard_coordinator``), the capacity autopilot's hooks
+and the admin queue view (``describe_queue_states``). Fault injection
+waits for its plane (``faults`` must be None). Deviation: the executor
+also drives the standby transfer and timer processors, which the
+reference's service leaves on their own pumps.
 
 ``device`` (default ``"cuda"``) is where the replication planes' state
 rebuilders replay: the NDC replicator's conflict rebuilds, the snapshot
-installer's and the replicator queue's snapshot server. Without a card
+installer's and the replicator queue's snapshot server, and where the
+reshard coordinator flushes and warms moving workflows. Without a card
 the first device rebuild raises; it never slips onto the host route. The
 serving plane handed in carries its own device and its own checkpoint
 plane, through which ``stop()`` drains it.
@@ -20,6 +24,7 @@ plane, through which ``stop()`` drains it.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional
 
 from ..utils.clock import TimeSource
@@ -59,6 +64,7 @@ class HistoryService:
         checkpoints=None,
         serving=None,
         rate_limiter=None,
+        queue_executor=None,
         device="cuda",
     ) -> None:
         from ..utils.metrics import Scope
@@ -100,6 +106,23 @@ class HistoryService:
         # the retryable ServiceBusyError + retry-after. None = never
         # shed at this layer (the frontend's limiter still applies)
         self.rate_limiter = rate_limiter
+        # queues.ParallelQueueExecutor (the Onebox's queue_parallel):
+        # the shared conflict-keyed wave scheduler every owned shard's
+        # transfer/timer pumps (and here the standby pumps) register
+        # with. None (the default) keeps the sequential per-queue pump
+        # threads.
+        self.queue_executor = queue_executor
+        # config.ReshardingConfig (`resharding:` section) — read by the
+        # admin reshard verbs; None = defaults (enabled)
+        self.resharding_config = None
+        # the ONE ReshardCoordinator per host: the admin verbs and the
+        # capacity autopilot share it (two coordinators would each hold
+        # their own lock — "one plan at a time" must be host-wide)
+        self._resharder = None
+        self._resharder_lock = threading.Lock()
+        # runtime.autopilot.CapacityController (config `autopilot:`
+        # section), attached by the Onebox; None = manual capacity
+        self.autopilot = None
         # the serving tick pump (serving/pump.py), started when the
         # engine carries a configured cadence (serving.tickIntervalMs)
         self._tick_pump = None
@@ -141,6 +164,12 @@ class HistoryService:
     def start(self) -> None:
         if self.matching_client is None or self.history_client is None:
             raise RuntimeError("HistoryService.wire() must be called first")
+        if self.queue_executor is not None:
+            # before acquire_shards: _build_shard registers each shard's
+            # pumps with the executor, which must already be pumping
+            # (start() is idempotent — a shared executor across services
+            # starts once)
+            self.queue_executor.start()
         self.controller.acquire_shards()
         if (self.serving is not None
                 and getattr(self.serving, "tick_interval_s", 0) > 0):
@@ -153,8 +182,14 @@ class HistoryService:
                 self.serving, self.serving.tick_interval_s,
                 metrics=self.metrics,
             ).start()
+        if self.autopilot is not None:
+            self.autopilot.start()
 
     def stop(self) -> None:
+        if self.autopilot is not None:
+            # the controller goes FIRST: a retune or reshard proposal
+            # racing the drain below would act on shards mid-teardown
+            self.autopilot.stop()
         if self._tick_pump is not None:
             # pump drain-on-stop FIRST: its final tick composes Δs
             # staged since the last cycle, so the lane flush below
@@ -167,6 +202,8 @@ class HistoryService:
             # boot's admissions resume suffix-only)
             self.serving.drain()
         self.controller.stop()
+        if self.queue_executor is not None:
+            self.queue_executor.stop()
 
     # -- per-shard assembly --------------------------------------------
 
@@ -190,6 +227,7 @@ class HistoryService:
             standby_clusters=self.standby_clusters,
             metrics=self.metrics,
             exhausted_retry_delay_s=self._queue_park_delay_s,
+            executor=self.queue_executor,
         )
         timer = TimerQueueProcessor(
             shard, engine, matching=self.matching_client,
@@ -197,6 +235,7 @@ class HistoryService:
             standby_clusters=self.standby_clusters,
             metrics=self.metrics,
             exhausted_retry_delay_s=self._queue_park_delay_s,
+            executor=self.queue_executor,
         )
         processors = [transfer, timer]
         notifiers = [transfer.notify]
@@ -219,11 +258,13 @@ class HistoryService:
                 shard, engine, cluster, local_cluster=local_cluster,
                 on_handover=transfer_handover, metrics=self.metrics,
                 exhausted_retry_delay_s=self._queue_park_delay_s,
+                executor=self.queue_executor,
             )
             tm = TimerQueueStandbyProcessor(
                 shard, engine, cluster, local_cluster=local_cluster,
                 on_handover=timer_handover, metrics=self.metrics,
                 exhausted_retry_delay_s=self._queue_park_delay_s,
+                executor=self.queue_executor,
             )
             processors += [ts, tm]
             notifiers.append(ts.notify)
@@ -371,10 +412,66 @@ class HistoryService:
             domain_id, workflow_id, run_id, branch_token
         )
 
+    # -- resharding ----------------------------------------------------
+
+    def reshard_coordinator(self):
+        """The host's ONE ReshardCoordinator, built lazily on this
+        service's device: the admin verbs and the capacity autopilot
+        both call through here, so their plans serialize on the same
+        coordinator lock — one plan at a time is a host property, not a
+        caller property."""
+        with self._resharder_lock:
+            if self._resharder is None:
+                from .resharding import ReshardCoordinator
+
+                cfg = self.resharding_config
+                self._resharder = ReshardCoordinator(
+                    self.persistence,
+                    [self.controller],
+                    metrics=self.metrics,
+                    drain_timeout_s=(
+                        cfg.drain_timeout_s if cfg is not None else 10.0
+                    ),
+                    checkpoint_flush=(
+                        cfg.checkpoint_flush if cfg is not None else True
+                    ),
+                    time_source=self._time,
+                    device=self.device,
+                )
+            return self._resharder
+
     # -- introspection -------------------------------------------------
 
     def describe(self) -> dict:
         return self.controller.describe()
+
+    def describe_queue_states(self, shard_id: int) -> dict:
+        """Per-queue cursor/depth view of one owned shard (reference
+        tools/cli/adminQueueCommands.go DescribeQueue): each processor's
+        ack level plus in-flight and parked (standby hold) depths — the
+        operator view of a wedged ack sweep. Raises KeyError for a
+        shard this host doesn't own (AdminHandler maps to 404)."""
+        with self.controller._lock:
+            handle = self.controller._handles.get(shard_id)
+        if handle is None:
+            raise KeyError(shard_id)
+
+        def _level(v):
+            return list(v) if isinstance(v, tuple) else v
+
+        queues = []
+        for p in handle.processors:
+            ack = getattr(p, "ack", None)
+            if ack is None:
+                continue  # e.g. QueueGC / replication consumers
+            queues.append({
+                "queue": getattr(p, "name", type(p).__name__),
+                "ack_level": _level(ack.ack_level),
+                "read_level": _level(ack.read_level),
+                "outstanding": ack.outstanding(),
+                "held": ack.held(),
+            })
+        return {"shard_id": shard_id, "queues": queues}
 
     def drain_queues(self, timeout_s: float = 10.0) -> bool:
         """Wait until every owned shard's queues are quiescent (tests)."""

@@ -9,12 +9,13 @@ A copy of the reference package's ``testing/onebox.py`` over the port's
 modules. ``device`` (default ``"cuda"``, which raises without a card at
 the first device replay) is where the ``ResidentEngine`` of
 ``serving=True`` runs and where the history service's replication planes
-rebuild. The planes the port
-has not yet raise ``NotImplementedError`` when asked for: the worker
-service (``start_worker``, so it defaults to False here), the capacity
-autopilot (``autopilot``), the shared parallel queue executor
-(``queue_parallel``), fault injection (``faults``) and the concurrency
-sanitizer (``sanitize``).
+rebuild, and where the reshard coordinator that the admin verbs and the
+capacity autopilot (``autopilot``) share flushes and warms the moving
+workflows. ``queue_parallel`` drives the box's transfer, timer and
+standby queues through one ``ParallelQueueExecutor``. The planes the
+port has not yet raise ``NotImplementedError`` when asked for: the
+worker service (``start_worker``, so it defaults to False here), fault
+injection (``faults``) and the concurrency sanitizer (``sanitize``).
 """
 
 from __future__ import annotations
@@ -37,13 +38,10 @@ from ..runtime.service import HistoryService
 from ..visibility import AdvancedVisibilityStore
 
 
-def _refuse_unported(start_worker, faults, sanitize, autopilot,
-                     queue_parallel) -> None:
+def _refuse_unported(start_worker, faults, sanitize) -> None:
     for name, asked in (("start_worker", start_worker),
                         ("faults", faults is not None),
-                        ("sanitize", sanitize),
-                        ("autopilot", autopilot),
-                        ("queue_parallel", queue_parallel)):
+                        ("sanitize", sanitize)):
         if asked:
             raise NotImplementedError(
                 f"Onebox({name}=...): that plane is not ported to "
@@ -70,8 +68,7 @@ class Onebox:
         queue_parallel: int = 0,
         device="cuda",
     ) -> None:
-        _refuse_unported(start_worker, faults, sanitize, autopilot,
-                         queue_parallel)
+        _refuse_unported(start_worker, faults, sanitize)
         self.persistence = persistence or create_memory_bundle()
         # every Onebox carries a real metrics scope and a metrics-
         # wrapped bundle: per-store histogram latencies and the
@@ -116,6 +113,18 @@ class Onebox:
                 device=device,
             )
         self.serving = serving or None
+        # queue_parallel > 0: the shared conflict-keyed wave executor
+        # (the reference's queues.parallelism gate) over this box's
+        # queue pumps. Built from the live footprint table (matrix=None
+        # → ConflictMatrix.live()), so it is fresh by construction and
+        # never degrades in-process.
+        self.queue_executor = None
+        if queue_parallel:
+            from ..runtime.queues.parallel import ParallelQueueExecutor
+
+            self.queue_executor = ParallelQueueExecutor(
+                parallelism=queue_parallel, metrics=self.metrics
+            )
         self.history = HistoryService(
             num_shards, self.persistence, self.domains, self.monitor,
             cluster_metadata=self.cluster_metadata,
@@ -124,6 +133,7 @@ class Onebox:
             time_source=time_source,
             checkpoints=self.checkpoints,
             serving=self.serving,
+            queue_executor=self.queue_executor,
             device=device,
         )
         self.history_client = HistoryClient(
@@ -149,6 +159,42 @@ class Onebox:
             metrics=self.metrics,
         )
         self.admin = AdminHandler(self.history, self.domains, bus=self.bus)
+        # autopilot: True builds an in-process CapacityController over
+        # this box's registry + shared reshard coordinator (epoch loop
+        # starts/stops with the history service); or pass an
+        # AutopilotConfig for custom knobs; None/False = manual capacity
+        self.autopilot = None
+        if autopilot:
+            from ..config.static import AutopilotConfig
+            from ..runtime.autopilot import CapacityController
+
+            ap_cfg = (
+                autopilot if isinstance(autopilot, AutopilotConfig)
+                else AutopilotConfig(enabled=True)
+            )
+            rate_hooks = {}
+            initial_rates = {}
+            if (self.serving is not None
+                    and self.serving.admission_quota_rps() > 0):
+                from ..runtime.autopilot import KEY_SERVING_QUOTA_RPS
+
+                rate_hooks[KEY_SERVING_QUOTA_RPS] = (
+                    self.serving.retune_admission
+                )
+                initial_rates[KEY_SERVING_QUOTA_RPS] = (
+                    self.serving.admission_quota_rps()
+                )
+            self.autopilot = self.history.autopilot = CapacityController(
+                ap_cfg,
+                registry=self.metrics.registry,
+                overrides=None,
+                rate_hooks=rate_hooks,
+                initial_rates=initial_rates,
+                resharder=self.history.reshard_coordinator,
+                history=self.history,
+                monitor=self.monitor,
+                metrics=self.metrics,
+            )
         self._started = False
 
     def start(self) -> "Onebox":

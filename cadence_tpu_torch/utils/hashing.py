@@ -24,3 +24,9 @@ def fnv1a32(s: str) -> int:
 def hash31(s: str) -> int:
     """Non-negative int31 hash — safe to store in an int32 tensor."""
     return fnv1a32(s) & 0x7FFFFFFF
+
+
+def shard_for_workflow(workflow_id: str, num_shards: int) -> int:
+    """workflowID → shard (reference: common/util.go:249-251); the
+    epoch-0 ``ShardMap`` routes the same way."""
+    return fnv1a32(workflow_id) % num_shards

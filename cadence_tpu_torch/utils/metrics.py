@@ -9,8 +9,10 @@ bucket by powers of two from 1 µs; ``timer_stats`` returns
 ``(count, total_s, max_s)`` with ``p50``/``p99``/``avg`` (linear
 interpolation inside the winning bucket, clamped to the observed max);
 ``snapshot()`` is the registry's debug dump, which the replication tests
-read. Windows, the series cap and the device metrics plane of the
-reference module are not ported.
+read. ``Window`` / ``WindowReading`` give interval deltas over a
+registry (the capacity autopilot's sense step reads them). The series
+cap and the device metrics plane of the reference module are not
+ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import math
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 TagTuple = Tuple[Tuple[str, str], ...]
 
@@ -218,6 +220,125 @@ class Registry:
             },
             "timers": timers,
         }
+
+
+class WindowReading:
+    """One interval's worth of samples: the difference between two
+    consecutive ``Window.advance()`` snapshots. Counters are deltas,
+    timers are delta histograms (real interval percentiles), gauges are
+    the point-in-time value at the closing snapshot."""
+
+    def __init__(
+        self,
+        counters: Dict[Tuple[str, TagTuple], int],
+        gauges: Dict[Tuple[str, TagTuple], float],
+        timers: Dict[Tuple[str, TagTuple], Histogram],
+        span_s: float,
+    ) -> None:
+        self._counters = counters
+        self._gauges = gauges
+        self._timers = timers
+        self.span_s = span_s
+
+    def counter(self, name: str, tags: Optional[Dict[str, str]] = None) -> int:
+        if tags is not None:
+            return self._counters.get((name, _tags_key(tags)), 0)
+        return sum(v for (n, _), v in self._counters.items() if n == name)
+
+    def gauge(
+        self, name: str, tags: Optional[Dict[str, str]] = None,
+        default: float = 0.0,
+    ) -> float:
+        if tags is not None:
+            return self._gauges.get((name, _tags_key(tags)), default)
+        vals = [v for (n, _), v in self._gauges.items() if n == name]
+        return max(vals) if vals else default
+
+    def timer_stats(
+        self, name: str, tags: Optional[Dict[str, str]] = None,
+        where: Optional[Callable[[TagTuple], bool]] = None,
+    ) -> TimerStats:
+        """Interval stats for ``name``. With ``tags``, one exact series;
+        otherwise all series merged — optionally filtered by ``where``,
+        a predicate over each series' tag tuple (lets a consumer merge
+        "every series except …" without touching internals)."""
+        agg = Histogram()
+        if tags is not None:
+            hist = self._timers.get((name, _tags_key(tags)))
+            if hist is not None:
+                agg.merge(hist)
+        else:
+            for (n, t), hist in self._timers.items():
+                if n == name and (where is None or where(t)):
+                    agg.merge(hist)
+        return TimerStats(agg)
+
+    def timer_tags(self, name: str) -> List[TagTuple]:
+        """Tag tuples of every series of ``name`` active this interval."""
+        return [t for (n, t), h in self._timers.items() if n == name and h.count]
+
+
+class Window:
+    """Interval-delta view over a cumulative ``Registry``.
+
+    Registry histograms accumulate since process start — useless for
+    control ("what is p99 *now*?"). A ``Window`` snapshots raw bucket
+    counts on every ``advance()`` and returns the difference as a
+    ``WindowReading``: exactly the samples recorded between the two
+    snapshots, with real interval percentiles. One Window per consumer;
+    advancing one never perturbs another (or the registry itself)."""
+
+    def __init__(self, registry: Registry) -> None:
+        self.registry = registry
+        self._prev_counters: Dict[Tuple[str, TagTuple], int] = {}
+        self._prev_timers: Dict[
+            Tuple[str, TagTuple], Tuple[int, float, float, List[int]]
+        ] = {}
+        self._prev_at = time.monotonic()
+
+    def advance(self) -> WindowReading:
+        reg = self.registry
+        with reg._lock:
+            counters = dict(reg._counters)
+            gauges = dict(reg._gauges)
+            timers_raw = {
+                key: (h.count, h.total, h.max, list(h.counts))
+                for key, h in reg._timers.items()
+            }
+        now = time.monotonic()
+        span = max(now - self._prev_at, 0.0)
+
+        counter_deltas = {
+            key: v - self._prev_counters.get(key, 0)
+            for key, v in counters.items()
+        }
+        timer_deltas: Dict[Tuple[str, TagTuple], Histogram] = {}
+        for key, (count, total, mx, buckets) in timers_raw.items():
+            pcount, ptotal, _pmx, pbuckets = self._prev_timers.get(
+                key, (0, 0.0, 0.0, None)
+            )
+            h = Histogram()
+            h.count = count - pcount
+            h.total = total - ptotal
+            if pbuckets is None:
+                h.counts = list(buckets)
+            else:
+                h.counts = [c - p for c, p in zip(buckets, pbuckets)]
+            # the cumulative max may predate this interval; clamp to the
+            # upper bound of the highest bucket that saw a delta sample
+            # (never above the all-time max)
+            top = 0.0
+            for i in range(_NBUCKETS - 1, -1, -1):
+                if h.counts[i]:
+                    top = bucket_bounds(i)[1]
+                    break
+            h.max = min(mx, top)
+            timer_deltas[key] = h
+
+        self._prev_counters = counters
+        self._prev_timers = timers_raw
+        self._prev_at = now
+        return WindowReading(counter_deltas, gauges, timer_deltas, span)
 
 
 class Timer:

@@ -15,9 +15,11 @@ is one thread-local read).
 
 A copy of the reference package's ``utils/metrics_defs.py`` cut to the
 host runtime: the frontend, history and matching operation lists, the
-instrumentation, and the replication and failover name catalogs
-(``REPLICATION_METRICS``, ``FAILOVER_METRICS``: the names those planes
-emit). The reference's other ``*_METRICS`` catalogs wait for their planes.
+instrumentation, and the name catalogs of the planes ported so far:
+replication and failover (``REPLICATION_METRICS``, ``FAILOVER_METRICS``),
+the parallel queue executor (``PARQUEUE_METRICS``), resharding
+(``RESHARD_METRICS``) and the capacity autopilot (``AUTOPILOT_METRICS``).
+The reference's other ``*_METRICS`` catalogs wait for their planes.
 """
 
 from __future__ import annotations
@@ -138,6 +140,102 @@ FAILOVER_METRICS = (
     "failover_conflicts_resolved",
 )
 
+
+# queue task-execution metrics are tagged (queue=..., task_type=...);
+# task_outstanding gauges in-flight depth, task_held gauges the parked
+# (DeferTask/retry) depth — the standby planes' hold depth. Replication
+# emits replication_ack_lag (source side, tagged cluster=) plus
+# replication_tasks_applied / replication_apply_latency (consumer side).
+# Reference: common/metrics/defs.go task-type queue + replication scopes.
+QUEUE_METRICS = (
+    "task_requests", "task_latency", "task_errors", "task_outstanding",
+    "task_held",
+)
+# Parallel queue executor (runtime/queues/parallel.py), scope tagged
+# queue="parallel". parqueue_cycles / parqueue_tasks / parqueue_waves
+# count pump cycles, tasks collected, and conflict groups executed;
+# parqueue_wave_width records groups-per-cycle (the concurrency the
+# matrix actually unlocked) and parqueue_conflict_frac the fraction of
+# a cycle's tasks that conflicted into shared groups (1 - waves/tasks);
+# parqueue_cycle_latency times one collect→schedule→execute round.
+# parqueue_queues gauges registered pumps. The failure plane:
+# parqueue_matrix_stale counts a commutativity-matrix artifact rejected
+# at construction (version/fingerprint mismatch vs the live footprint
+# table) with parqueue_degraded gauging the resulting sequential-only
+# mode (1 = degraded — alert on it; the executor WARNS but will not
+# resume parallel waves until rebuilt against a fresh artifact), and
+# parqueue_stale_skipped counts tasks rejected wave-whole because their
+# queue's ack generation moved (rewind/fence) between collect and run.
+PARQUEUE_METRICS = (
+    "parqueue_cycles", "parqueue_tasks", "parqueue_waves",
+    "parqueue_wave_width", "parqueue_conflict_frac",
+    "parqueue_cycle_latency", "parqueue_queues",
+    "parqueue_matrix_stale", "parqueue_degraded",
+    "parqueue_stale_skipped",
+)
+
+# elastic resharding (runtime/resharding.py), emitted by the coordinator
+# under tags (layer=resharding): reshard_epoch gauges the committed
+# routing epoch, handoff_ms times each reconfiguration end-to-end,
+# checkpoints_shipped counts the snapshots flushed for the new owner,
+# and suffix_events_replayed counts the events the new owner actually
+# re-ran (total moved events minus events_replayed_saved — the
+# "checkpoints, not histories" shipping proof the chaos suite asserts).
+RESHARD_METRICS = (
+    "reshard_epoch",
+    "handoff_ms",
+    "reshard_pause_ms",
+    "checkpoints_shipped",
+    "suffix_events_replayed",
+    "reshard_commits",
+    "reshard_rollbacks",
+)
+
+# capacity autopilot (runtime/autopilot.py), tagged (layer=autopilot).
+# The epoch loop: autopilot_epochs/autopilot_epoch_seconds count and
+# time every sense→decide→actuate pass; autopilot_skipped_epochs are
+# passes that sensed but did not actuate (paused / not the elected
+# actuator / frozen); autopilot_errors are passes that raised (the loop
+# backs off and keeps going). Sensing: autopilot_sensed_p99_ms /
+# autopilot_sensed_shed_frac are the raw interval readings,
+# autopilot_demand_rps the smoothed OFFERED rate (admitted + shed —
+# shed traffic is demand) the rate plane tracks, autopilot_pressure
+# the EWMA'd p99/target (escalated by shed/target only once latency
+# is at target — shed alone must not spiral the gate) the gate sees,
+# autopilot_overload_engaged the gate state (1 = overloaded).
+# Rate plane: autopilot_rate_retunes counts setpoint changes,
+# autopilot_rate_rps (key=...) gauges each current setpoint,
+# autopilot_cooldown_skips counts actuations suppressed by a cooldown
+# or reshard backoff. Topology plane: autopilot_reshard_plans counts
+# committed split/merge plans, autopilot_reshard_failures aborted ones
+# (each engages the proposal backoff — never a hot retry). Guardrail:
+# autopilot_guardrail_freezes counts do-no-harm trips,
+# autopilot_reverts the rates restored to last-known-good,
+# autopilot_frozen the freeze state gauge. Operator plane:
+# autopilot_pauses/autopilot_resumes count the admin verbs,
+# autopilot_paused gauges the current pause state.
+AUTOPILOT_METRICS = (
+    "autopilot_epochs",
+    "autopilot_epoch_seconds",
+    "autopilot_skipped_epochs",
+    "autopilot_errors",
+    "autopilot_sensed_p99_ms",
+    "autopilot_sensed_shed_frac",
+    "autopilot_demand_rps",
+    "autopilot_pressure",
+    "autopilot_overload_engaged",
+    "autopilot_rate_retunes",
+    "autopilot_rate_rps",
+    "autopilot_cooldown_skips",
+    "autopilot_reshard_plans",
+    "autopilot_reshard_failures",
+    "autopilot_guardrail_freezes",
+    "autopilot_reverts",
+    "autopilot_frozen",
+    "autopilot_pauses",
+    "autopilot_resumes",
+    "autopilot_paused",
+)
 
 # the standard per-operation triple
 REQUESTS = "requests"

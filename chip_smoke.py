@@ -132,7 +132,32 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     own sizes. FSM launches by route, counted on the launching thread with
     no lock around the counted calls: the batched drain's conflict
     rebuilds, the snapshot serve, the snapshot install and (d)'s resume;
-14. the refresh's line (``device_passes``: torch ops, no kernel of its
+14. ``topology``: the parallel queue executor, elastic resharding and
+    the capacity autopilot (``cadence_tpu_torch/runtime/queues/parallel``,
+    ``runtime/resharding``, ``runtime/autopilot``, ``testing/
+    topology_cells``): (a) the reference bench's ``queue_drain`` cell at
+    its size, the sequential pump against the shared executor over the
+    same storm (final states equal, the matrix gate not degraded); (b)
+    ``split_merge``: the Onebox twin on 4 shards with a 12-wide executor
+    and checkpoints, 4,096 workflows started and signalled and 64 deep
+    ones of ~1,000 events in the class the split moves, then
+    ``admin.reshard_split(0)`` and ``reshard_merge`` back, each with 64
+    workflows started and the deep ones signalled while its flush runs;
+    after each plan: committed at the next epoch, every row on the shard
+    its workflow routes to, every moved open workflow's state on its new
+    owner and the warm's device result equal to the host replay at its
+    tip, no host rebuild; then every scheduled decision in matching and,
+    past the short timeout, every short timer fired; the flush's
+    ``rebuild_many`` split and the FSM kernel at its batch against its
+    bound; (c) the reference bench's ``reshard_live`` cell (16 s of load,
+    a split mid-run); (d) its ``capacity_diurnal`` cell on the card's
+    ``ResidentEngine`` (the setpoint tracks the curve both ways, no
+    operator call, no freeze), then the autopilot's topology loop: a
+    hotspot on one shard of a 2-shard Onebox twin until the controller
+    splits it on the card, then idle until it merges. FSM launches by
+    route, counted on the launching thread: the reshard flush, the warm
+    and the diurnal engine;
+15. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -2990,42 +3015,25 @@ DRILL_CELL = dict(workflows=6, signals_each=24, bytes_per_s=131072.0)
 REPL_DRAIN_S, REPL_DISPATCH_S = 600.0, 300.0
 
 
-class ReplicationRoutes:
-    """FSM launches of the replication planes, by route: the batched
-    drain's conflict rebuilds (``NDCHistoryReplicator._drain_deferred``),
-    the active side's snapshot serve
-    (``ReplicatorQueueProcessor.get_replication_checkpoint``) and the
-    standby's snapshot install (``NDCHistoryReplicator.
-    apply_state_snapshot``). A wrapped call tags its thread with its route
-    and runs unserialised; a ``DeviceDispatcher`` made under a tag hands it
-    to its run thread, and every FSM launch (``replay_cuda._launch``) on a
-    tagged thread counts to that route. ``calls`` counts the calls."""
+class ThreadRoutes:
+    """FSM launches by route, counted on the launching thread. Each
+    wrapped site (``sites``: route -> (class, method)) tags its thread
+    with its route and runs unserialised; a ``DeviceDispatcher`` made
+    under a tag hands it to its run thread, and every FSM launch
+    (``replay_cuda._launch``) on a tagged thread counts to that route.
+    ``extra`` names routes tagged by hand (``run``). ``calls`` counts the
+    calls."""
 
-    def __init__(self, RC):
+    def __init__(self, RC, sites, extra=()):
         import threading
 
         from cadence_tpu_torch.ops import dispatch as D
-        from cadence_tpu_torch.runtime.replication.ndc import (
-            NDCHistoryReplicator)
-        from cadence_tpu_torch.runtime.replication.replicator_queue import (
-            ReplicatorQueueProcessor)
 
         self.RC = RC
         self._tag = threading.local()
         # held for an increment only, never around a call
         self._lock = threading.Lock()
-        sites = {
-            "replication_conflict": (NDCHistoryReplicator,
-                                     "_drain_deferred"),
-            "replication_snapshot_serve": (ReplicatorQueueProcessor,
-                                           "get_replication_checkpoint"),
-            "replication_snapshot_install": (NDCHistoryReplicator,
-                                             "apply_state_snapshot"),
-        }
-        # the install drill's suffix resume on the installer's rebuilder
-        # (part (d)), run under its own route through run()
-        self.counts = dict.fromkeys(
-            [*sites, "replication_install_resume"], 0)
+        self.counts = dict.fromkeys([*sites, *extra], 0)
         self.calls = dict.fromkeys(self.counts, 0)
         Disp = D.DeviceDispatcher
         self._saved = [(cls, name, getattr(cls, name))
@@ -3077,6 +3085,28 @@ class ReplicationRoutes:
         for cls, name, fn in self._saved:
             setattr(cls, name, fn)
         self.RC._launch = self._saved_launch
+
+
+def ReplicationRoutes(RC):
+    """FSM launches of the replication planes, by route: the batched
+    drain's conflict rebuilds (``NDCHistoryReplicator._drain_deferred``),
+    the active side's snapshot serve
+    (``ReplicatorQueueProcessor.get_replication_checkpoint``), the
+    standby's snapshot install (``NDCHistoryReplicator.
+    apply_state_snapshot``) and, tagged by hand, the install drill's
+    suffix resume on the installer's rebuilder (part (d))."""
+    from cadence_tpu_torch.runtime.replication.ndc import (
+        NDCHistoryReplicator)
+    from cadence_tpu_torch.runtime.replication.replicator_queue import (
+        ReplicatorQueueProcessor)
+
+    return ThreadRoutes(RC, {
+        "replication_conflict": (NDCHistoryReplicator, "_drain_deferred"),
+        "replication_snapshot_serve": (ReplicatorQueueProcessor,
+                                       "get_replication_checkpoint"),
+        "replication_snapshot_install": (NDCHistoryReplicator,
+                                         "apply_state_snapshot"),
+    }, extra=("replication_install_resume",))
 
 
 def repl_meta(current):
@@ -3720,9 +3750,10 @@ def phase_repl_install(device, routes):
 
 
 def time_storm_kernel(torch, np, S, P, RC, forks):
-    """The FSM kernel at (b2)'s storm batch: the forked branches (every
-    event before each divergent tail), packed as the dispatcher packs
-    them at the rebuilder's default capacities."""
+    """The FSM kernel at a ``rebuild_many`` batch (phase 13 (b2)'s storm:
+    the forked branches, every event before each divergent tail; phase
+    14 (b)'s split flush: the moving workflows), packed as the dispatcher
+    packs them at the rebuilder's default capacities."""
     from cadence_tpu_torch.ops.dispatch import depth_buckets
 
     caps = S.Capacities()
@@ -3811,6 +3842,519 @@ def phase_replication(torch, np, S, P, RC, smi, device="cuda"):
     check(routes.calls["replication_snapshot_install"] > 0,
           "the replication phase installed no snapshot")
     return dict(routes.counts), storm_kernel
+
+
+# -- phase 14: the topology planes ----------------------------------------
+
+# (a) bench.py's queue_drain cell at its size (bench.py:2434-2436)
+TOPO_QDRAIN = dict(tasks_per_queue=2000, n_wf=48, parallelism=12,
+                   stall_us=250)
+# (b) split and merge on the Onebox twin at the history host's size of
+# phases 11-13: 4 shards, 4,096 workflows started and signalled once
+# (every eighth with a short execution timeout, the timer that must fire
+# after the moves), 64 deep workflows of ~1,000 events (start plus 998
+# signals) whose ids fall in the class the split moves, and 64 more
+# workflows started into the moving class while each plan's flush runs.
+# The domain is global, active on this box's cluster of the replication
+# tests' two (phase 13's metadata): each shard also runs the standby
+# planes of the other cluster, which the executor drives too, and the
+# engine keeps version histories, so a moved workflow's state compares
+# with the host replay field for field
+TOPO_SHARDS, TOPO_WORKFLOWS, TOPO_PARALLEL = 4, 4096, 12
+TOPO_DEEP, TOPO_DEEP_SIGNALS, TOPO_DURING = 64, 998, 64
+TOPO_SHORT_S, TOPO_LONG_S, TOPO_SHORT_EVERY = 600, 86400, 8
+TOPO_DOMAIN, TOPO_TASK_LIST = "topo-domain", "topo-tl"
+TOPO_FIRE_S = 120.0
+# (c) bench.py's reshard_live cell (bench.py:456, :2397): 16 s, 2 load
+# threads, a probe every 4 ms on Onebox(num_shards=2, checkpoints=True)
+TOPO_LIVE = dict(duration_s=16.0, load_threads=2, probe_interval_s=0.004)
+# (d) bench.py's capacity_diurnal cell (bench.py:1515, :2423-2425), then
+# the autopilot's topology loop (tests/test_autopilot.py:500's case): a
+# hotspot of TOPO_HOT workflows on shard 0 of a 2-shard box until the
+# controller splits it, then idle (the hotspot terminated) until it merges
+TOPO_DIURNAL = dict(workflows_per_chunk=8, qps_low=60.0, qps_high=600.0,
+                    chunks_low=3, chunks_high=4, chunks_trough=4, lanes=16)
+TOPO_HOT, TOPO_EPOCHS = 512, 12
+
+
+def TopologyRoutes(RC):
+    """FSM launches of the topology planes, by route: the reshard
+    coordinator's checkpoint flush and its warm of the new owners
+    (``ReshardCoordinator._flush_checkpoints`` / ``_warm_new_owners``,
+    whoever drives the plan: the admin verbs, the live cell, the
+    autopilot) and, tagged by hand, the diurnal cell's serving engine."""
+    from cadence_tpu_torch.runtime.resharding import ReshardCoordinator
+
+    return ThreadRoutes(RC, {
+        "reshard_flush": (ReshardCoordinator, "_flush_checkpoints"),
+        "reshard_warm": (ReshardCoordinator, "_warm_new_owners"),
+    }, extra=("topology_diurnal",))
+
+
+def topo_moving(wf):
+    """Whether ``wf`` lies in the class that splitting shard 0 of the
+    initial ``TOPO_SHARDS``-shard map moves to the new shard."""
+    from cadence_tpu_torch.utils.hashing import fnv1a32
+
+    return fnv1a32(wf) % (2 * TOPO_SHARDS) == TOPO_SHARDS
+
+
+def topo_ids(prefix, n, moving):
+    """The first ``n`` ids ``prefix-k`` in (or out of) the moving class."""
+    out, k = [], 0
+    while len(out) < n:
+        wf = f"{prefix}-{k:05d}"
+        if moving is None or topo_moving(wf) == moving:
+            out.append(wf)
+        k += 1
+    return out
+
+
+def topo_start(box, wf, timeout_s):
+    from cadence_tpu_torch.runtime.api import StartWorkflowRequest
+
+    return box.frontend.start_workflow_execution(StartWorkflowRequest(
+        domain=TOPO_DOMAIN, workflow_id=wf, workflow_type="topo-wf",
+        task_list=TOPO_TASK_LIST, input=b"x", request_id=f"start-{wf}",
+        execution_start_to_close_timeout_seconds=timeout_s))
+
+
+def topo_signal(box, wf, name="s"):
+    from cadence_tpu_torch.runtime.api import SignalRequest
+
+    box.frontend.signal_workflow_execution(SignalRequest(
+        domain=TOPO_DOMAIN, workflow_id=wf, signal_name=name, input=b"y"))
+
+
+def topo_rows(box):
+    """shard -> workflow ids of the execution rows it holds, over the
+    current map's shards."""
+    ex = box.persistence.execution
+    return {sid: [wf for _, wf, _ in ex.list_concrete_executions(sid)]
+            for sid in box.history.controller.shard_map.shard_ids()}
+
+
+def topo_state(box, domain_id, wf, run):
+    """The run's canonical state, loaded afresh by its owner's engine."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+
+    engine = box.history.controller.get_engine(wf)
+    ctx = engine.cache.get_or_create(domain_id, wf, run)
+    with ctx.lock:
+        ctx.clear()
+        ms = ctx.load()
+    return mutable_state_to_snapshot(ms), ms.execution_info.branch_token
+
+
+class RebuildSpy:
+    """Every ``StateRebuilder.rebuild_many`` call and its results while
+    installed, with the route of the calling thread (``routes``), and
+    every host ``rebuild`` a coordinator's rebuilder makes."""
+
+    def __init__(self, routes):
+        from cadence_tpu_torch.runtime.replication.rebuilder import (
+            StateRebuilder)
+
+        self.cls, self.calls, self.host = StateRebuilder, [], []
+        many, one, tag = (StateRebuilder.rebuild_many,
+                          StateRebuilder.rebuild, routes._tag)
+        self._saved = (many, one)
+
+        def spy_many(rb, reqs, use_device=True):
+            t0 = time.perf_counter()
+            out = many(rb, reqs, use_device=use_device)
+            self.calls.append((getattr(tag, "route", None), list(reqs),
+                               out, use_device, time.perf_counter() - t0))
+            return out
+
+        def spy_one(rb, req):
+            route = getattr(tag, "route", None)
+            if route is not None:
+                self.host.append((route, req.workflow_id))
+            return one(rb, req)
+        StateRebuilder.rebuild_many, StateRebuilder.rebuild = (
+            spy_many, spy_one)
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+    def restore(self):
+        self.cls.rebuild_many, self.cls.rebuild = self._saved
+
+
+def topo_plan(box, domain_id, runs, call, during, spy, epoch, oracle):
+    """One plan through the admin verb ``call`` with ``during(step)`` run
+    at each protocol step, then its checks: committed at ``epoch``, every
+    row on the shard its workflow routes to, every moved open workflow's
+    state on its new owner and the warm's device result equal to the host
+    replay at its tip, and no host rebuild. Returns the record."""
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest)
+
+    coord = box.history.reshard_coordinator()
+    coord._on_step = during
+    try:
+        t0 = time.perf_counter()
+        plan = call()
+        wall = time.perf_counter() - t0
+    finally:
+        coord._on_step = lambda step: None
+    calls = spy.take()
+    scopes = coord.last_rebuild_scopes
+    check(plan["state"] == "COMMITTED" and plan["epoch_to"] == epoch,
+          f"(b) plan {plan['kind']} {plan['state']} at epoch "
+          f"{plan['epoch_to']}, not committed at {epoch}")
+    # every row on the shard its workflow routes to, each exactly once
+    rows = topo_rows(box)
+    ctl = box.history.controller
+    misplaced = sum(ctl.shard_for(wf) != sid
+                    for sid, wfs in rows.items() for wf in wfs)
+    placed = sorted(wf for wfs in rows.values() for wf in wfs)
+    check(misplaced == 0 and placed == sorted(runs),
+          f"(b) {misplaced} rows misplaced, {len(placed)} rows for "
+          f"{len(runs)} workflows after the {plan['kind']}")
+    # the moved open workflows (flushed, and started during the flush):
+    # state on the new owner and the warm's device result, both against
+    # the host replay at the tip
+    warm = {r.workflow_id: mutable_state_to_snapshot(res[0])
+            for route, reqs, out, dev, _ in calls if route == "reshard_warm"
+            for r, res in zip(reqs, out)}
+    flush = [r for route, reqs, _, _, _ in calls
+             if route == "reshard_flush" for r in reqs]
+    flushed = {r.workflow_id for r in flush}
+    t0 = time.perf_counter()
+    state_mism = warm_mism = 0
+    for wf in sorted(warm):
+        got, token = topo_state(box, domain_id, wf, runs[wf])
+        want = mutable_state_to_snapshot(oracle.rebuild(RebuildRequest(
+            domain_id, wf, runs[wf], token))[0])
+        state_mism += got != want
+        warm_mism += warm[wf] != want
+    oracle_s = time.perf_counter() - t0
+    check(flushed and flushed <= set(warm),
+          f"(b) the warm rebuilt {len(flushed & set(warm))} of the "
+          f"{len(flushed)} flushed workflows")
+    check(state_mism == 0 and warm_mism == 0,
+          f"(b) of {len(warm)} moved workflows {state_mism} differ from "
+          f"the host replay on their new owner, {warm_mism} in the warm's "
+          "device result")
+    fallbacks = {k: sc.registry.counter_value("host_fallbacks")
+                 for k, sc in scopes.items()}
+    check(not spy.host and not any(fallbacks.values())
+          and all(dev for _, _, _, dev, _ in calls),
+          f"(b) moved workflows rebuilt on the host: {spy.host[:4]} "
+          f"{fallbacks}")
+    split = {k: {t: sc.registry.timer_stats(t).total_s
+                 for t in ("history_read", "dispatch_wait", "rehydrate")}
+             for k, sc in scopes.items()}
+    return {
+        **{k: plan[k] for k in (
+            "kind", "epoch_to", "sources", "targets", "state",
+            "handoff_ms", "pause_ms", "moved_workflows", "moved_tasks",
+            "checkpoints_shipped", "suffix_events_replayed")},
+        "admin_call_s": wall,
+        "rebuild_many_calls": [(route, len(reqs), wall_s)
+                               for route, reqs, _, _, wall_s in calls],
+        "flush_rebuild_many_s": split.get("flush"),
+        "warm_rebuild_many_s": split.get("warm"),
+        "flushed": len(flushed), "moved_open_checked": len(warm),
+        "state_mismatches": state_mism,
+        "warm_mismatches": warm_mism, "host_replay_s": oracle_s,
+    }, flush
+
+
+def topo_decisions(box, domain_id):
+    """workflow id -> decision tasks waiting in the box's matching."""
+    tasks = box.persistence.task.get_tasks(
+        domain_id, TOPO_TASK_LIST, 0, read_level=0,
+        max_read_level=1 << 62, batch_size=1 << 30)
+    out = {}
+    for t in tasks:
+        out[t.workflow_id] = out.get(t.workflow_id, 0) + 1
+    return out
+
+
+def phase_topo_split_merge(torch, np, S, P, RC, routes, device):
+    """(b): a split and a merge back on the Onebox twin through the admin
+    verbs, on the card. Returns the record and the flush's histories."""
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        StateRebuilder)
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.utils.clock import FakeTimeSource
+
+    clock = FakeTimeSource()
+    box = Onebox(num_shards=TOPO_SHARDS, checkpoints=True,
+                 queue_parallel=TOPO_PARALLEL, device=device,
+                 time_source=clock,
+                 cluster_metadata=repl_meta("active")).start()
+    spy = RebuildSpy(routes)
+    try:
+        box.domain_handler.register_domain(
+            TOPO_DOMAIN, is_global=True, clusters=["active", "standby"],
+            active_cluster="active")
+        domain_id = box.domains.get_by_name(TOPO_DOMAIN).info.id
+        wfs = topo_ids("topo", TOPO_WORKFLOWS, None)
+        deep = topo_ids("topo-deep", TOPO_DEEP, True)
+        short = set(wfs[::TOPO_SHORT_EVERY])
+        runs = {}
+        t0 = time.perf_counter()
+        for wf in wfs:
+            runs[wf] = topo_start(
+                box, wf, TOPO_SHORT_S if wf in short else TOPO_LONG_S)
+        for wf in wfs:
+            topo_signal(box, wf)
+        seed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for wf in deep:
+            runs[wf] = topo_start(box, wf, TOPO_LONG_S)
+            for _ in range(TOPO_DEEP_SIGNALS):
+                topo_signal(box, wf)
+        deep_s = time.perf_counter() - t0
+        check(box.history.drain_queues(60.0), "(b) queues did not drain "
+              "before the split")
+        oracle = StateRebuilder(box.persistence.history, device="cpu")
+
+        def during(tag):
+            def on_step(step):
+                if step != "flushed":
+                    return
+                # live traffic between the flush and the fence: the warm
+                # replays the deep workflows' new suffix; the new
+                # workflows' first decisions move with their shard
+                for wf in deep:
+                    topo_signal(box, wf, f"{tag}-during")
+                for wf in topo_ids(f"topo-{tag}", TOPO_DURING, True):
+                    runs[wf] = topo_start(box, wf, TOPO_LONG_S)
+            return on_step
+
+        split, flush_hs = topo_plan(
+            box, domain_id, runs, lambda: box.admin.reshard_split(0),
+            during("split"), spy, 1, oracle)
+        check(box.history.drain_queues(60.0), "(b) queues did not drain "
+              "after the split")
+        new_id = split["targets"][0]
+        merge, _ = topo_plan(
+            box, domain_id, runs,
+            lambda: box.admin.reshard_merge(new_id, 0),
+            during("merge"), spy, 2, oracle)
+        check(box.history.drain_queues(60.0), "(b) queues did not drain "
+              "after the merge")
+        # no task lost: every open workflow's first decision in matching
+        waiting = topo_decisions(box, domain_id)
+        missing = [wf for wf in runs if not waiting.get(wf)]
+        check(not missing, f"(b) {len(missing)} scheduled decisions never "
+              f"reached matching: {missing[:4]}")
+        # the moved timers fire: past the short timeout, every short
+        # workflow times out on the shard it now lives on
+        clock.advance((TOPO_SHORT_S + 1) * 10**9)
+        t0 = time.perf_counter()
+        pending = set(short)
+        while pending and time.perf_counter() - t0 < TOPO_FIRE_S:
+            pending = {wf for wf in pending
+                       if box.frontend.describe_workflow_execution(
+                           TOPO_DOMAIN, wf, runs[wf]).is_running}
+            time.sleep(0.05)
+        fire_s = time.perf_counter() - t0
+        moved_short = [wf for wf in short if topo_moving(wf)]
+        check(not pending, f"(b) {len(pending)} of {len(short)} short "
+              f"timers never fired ({len([w for w in pending if w in moved_short])} "
+              "of them moved)")
+        still = sum(box.frontend.describe_workflow_execution(
+            TOPO_DOMAIN, wf, runs[wf]).is_running
+            for wf in wfs if wf not in short)
+        check(still == TOPO_WORKFLOWS - len(short),
+              f"(b) {TOPO_WORKFLOWS - len(short) - still} long-timeout "
+              "workflows closed")
+        ex = box.queue_executor
+        rec = {
+            "shards": TOPO_SHARDS, "workflows": TOPO_WORKFLOWS,
+            "deep": TOPO_DEEP, "deep_events": 2 + TOPO_DEEP_SIGNALS,
+            "during_each_plan": TOPO_DURING, "queue_parallel": TOPO_PARALLEL,
+            "seed_s": seed_s, "deep_seed_s": deep_s,
+            "split": split, "merge": merge,
+            "decisions_in_matching": len(runs) - len(missing),
+            "short_timers": len(short), "moved_short_timers": len(moved_short),
+            "timers_fire_s": fire_s,
+            "executor": {"cycles": ex.cycles, "tasks": ex.tasks,
+                         "waves": ex.waves, "stale_skipped": ex.stale_skipped,
+                         "degraded": ex.degraded},
+        }
+    finally:
+        spy.restore()
+        box.stop()
+    hs = [(r.workflow_id, r.run_id, oracle._read_batches(r))
+          for r in flush_hs]
+    return rec, hs
+
+
+def phase_topo_autopilot(routes, device):
+    """(d), second part: the autopilot's topology loop on the Onebox
+    twin. A hotspot of open workflows on shard 0 (the controller's shard
+    load is each shard's open workflows) until it splits, then idle (the
+    hotspot terminated) until it merges. Returns the record."""
+    from cadence_tpu_torch.config.static import AutopilotConfig
+    from cadence_tpu_torch.runtime.autopilot import CapacityController
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.utils.hashing import fnv1a32
+
+    box = Onebox(num_shards=2, checkpoints=True, device=device).start()
+    try:
+        box.domain_handler.register_domain(TOPO_DOMAIN)
+        ex = box.persistence.execution
+        open_ = set()
+
+        def load():
+            return {sid: sum(wf in open_ for _, wf, _ in
+                             ex.list_concrete_executions(sid))
+                    for sid in box.history.controller.shard_map.shard_ids()}
+
+        ap = CapacityController(
+            AutopilotConfig(
+                enabled=True, epoch_interval_s=5.0,
+                target_p99_ms=60_000.0, ewma_alpha=1.0, min_dwell=1,
+                cooldown_epochs=0, reshard_cooldown_epochs=0,
+                hot_shard_depth=100, hot_shard_factor=1.5, min_shards=2,
+                max_shards=8, cold_shard_frac=0.25),
+            registry=box.metrics.registry,
+            resharder=box.history.reshard_coordinator,
+            history=box.history, shard_load_fn=load, metrics=box.metrics)
+        box.history.autopilot = ap
+        idle = ap.run_epoch_once()
+        check(idle["plans"] == 0, "(d) the autopilot resharded an idle box")
+        hot, k = [], 0
+        while len(hot) < TOPO_HOT:
+            wf = f"topo-hot-{k:05d}"
+            if fnv1a32(wf) % 2 == 0:
+                hot.append(wf)
+            k += 1
+        runs = {wf: topo_start(box, wf, TOPO_LONG_S) for wf in hot}
+        for wf in hot:
+            topo_signal(box, wf)
+        open_.update(hot)
+        epochs, t0 = [], time.perf_counter()
+        while len(box.history.controller.owned_shards()) == 2 \
+                and len(epochs) < TOPO_EPOCHS:
+            epochs.append(ap.run_epoch_once())
+        split_s = time.perf_counter() - t0
+        after_split = box.history.controller.owned_shards()
+        check(len(after_split) == 3, f"(d) no split in {len(epochs)} "
+              f"epochs of a hotspot: {load()}")
+        for wf in hot:
+            box.frontend.terminate_workflow_execution(
+                TOPO_DOMAIN, wf, runs[wf], reason="idle")
+        open_.clear()
+        n_split, t0 = len(epochs), time.perf_counter()
+        while len(box.history.controller.owned_shards()) == 3 \
+                and len(epochs) < 2 * TOPO_EPOCHS:
+            epochs.append(ap.run_epoch_once())
+        merge_s = time.perf_counter() - t0
+        after_merge = box.history.controller.owned_shards()
+        check(len(after_merge) == 2, f"(d) no merge in "
+              f"{len(epochs) - n_split} idle epochs")
+        st = box.admin.autopilot_status()
+        rec = {"hotspot": TOPO_HOT, "epochs": len(epochs),
+               "epochs_to_split": n_split,
+               "epochs_to_merge": len(epochs) - n_split,
+               "plans_executed": sum(e["plans"] for e in epochs),
+               "split_wall_s": split_s, "merge_wall_s": merge_s,
+               "shards_after_split": after_split,
+               "shards_after_merge": after_merge,
+               "reshard_failures": st["reshard_failures"],
+               "guardrail_freezes": st["guardrail_freezes"],
+               "last_plan": {k: v for k, v in
+                             box.admin.reshard_status()["last_plan"].items()
+                             if k in ("kind", "state", "epoch_to",
+                                      "handoff_ms", "pause_ms",
+                                      "moved_workflows",
+                                      "checkpoints_shipped")}}
+        check(rec["plans_executed"] == 2 and not st["reshard_failures"]
+              and not st["guardrail_freezes"],
+              f"(d) the topology loop: {rec}")
+    finally:
+        box.stop()
+    return rec
+
+
+def phase_topology(torch, np, S, P, RC, smi, device="cuda"):
+    """Phase 14: the parallel queue executor, elastic resharding and the
+    capacity autopilot on the card. Returns FSM launches by route and
+    the kernel's timing at (b)'s split flush."""
+    from cadence_tpu_torch.testing.topology_cells import (
+        capacity_diurnal, queue_drain, reshard_live)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    t0 = time.perf_counter()
+    qd = queue_drain(**TOPO_QDRAIN)
+    walls["queue_drain"] = time.perf_counter() - t0
+    emit({"phase": "topology", "part": "queue_drain", "cell": TOPO_QDRAIN,
+          **qd, "part_wall_s": walls["queue_drain"], "nvidia_smi": smi})
+    check(qd["drained"] and qd["state_identical"],
+          f"(a) queue_drain: drained {qd['drained']}, states equal "
+          f"{qd['state_identical']}")
+    check(not qd["degraded"], "(a) the conflict-matrix gate degraded")
+
+    routes = TopologyRoutes(RC)
+    start = RC.replay_rows.launches
+    try:
+        t0 = time.perf_counter()
+        b, flush_hs = phase_topo_split_merge(torch, np, S, P, RC, routes,
+                                             device)
+        walls["split_merge"] = time.perf_counter() - t0
+        emit({"phase": "topology", "part": "split_merge", **b,
+              "part_wall_s": walls["split_merge"], "nvidia_smi": smi})
+        t0 = time.perf_counter()
+        live = reshard_live(**TOPO_LIVE, device=device)
+        walls["reshard_live"] = time.perf_counter() - t0
+        emit({"phase": "topology", "part": "reshard_live", "cell": TOPO_LIVE,
+              **live, "part_wall_s": walls["reshard_live"],
+              "nvidia_smi": smi})
+        check(live["handoff"]["state"] == "COMMITTED"
+              and live["workflows_completed"] > 0,
+              f"(c) reshard_live: {live['handoff']}, "
+              f"{live['workflows_completed']} completed")
+        t0 = time.perf_counter()
+        diurnal = routes.run("topology_diurnal", lambda: capacity_diurnal(
+            **TOPO_DIURNAL, device=device))
+        walls["capacity_diurnal"] = time.perf_counter() - t0
+        emit({"phase": "topology", "part": "capacity_diurnal",
+              "cell": TOPO_DIURNAL, **diurnal,
+              "part_wall_s": walls["capacity_diurnal"], "nvidia_smi": smi})
+        check(diurnal["rate_tracks_load"]
+              and diurnal["operator_calls"] == 0
+              and diurnal["guardrail_freezes"] == 0,
+              f"(d) capacity_diurnal: tracks {diurnal['rate_tracks_load']}, "
+              f"{diurnal['operator_calls']} operator calls, "
+              f"{diurnal['guardrail_freezes']} freezes")
+        t0 = time.perf_counter()
+        loop = phase_topo_autopilot(routes, device)
+        walls["autopilot_topology"] = time.perf_counter() - t0
+        emit({"phase": "topology", "part": "autopilot_topology", **loop,
+              "part_wall_s": walls["autopilot_topology"],
+              "nvidia_smi": smi})
+    finally:
+        routes.restore()
+    total = RC.replay_rows.launches - start
+    # the kernel at (b)'s split flush against its bound, outside the
+    # counted window
+    flush_kernel = (time_storm_kernel(torch, np, S, P, RC, flush_hs)
+                    if device == "cuda" else [])
+    emit({"phase": "topology", "part": "flush_kernel",
+          "histories": len(flush_hs), "packed_route": flush_kernel,
+          "nvidia_smi": smi})
+    emit({"phase": "topology", "part": "routes",
+          "fsm_launches": dict(routes.counts), "calls": dict(routes.calls),
+          "fsm_launches_total": total, "walls_s": walls,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    check(sum(routes.counts.values()) == total,
+          f"{total - sum(routes.counts.values())} FSM launches of the "
+          "phase outside its routes")
+    for route in routes.counts:
+        check(routes.counts[route] > 0,
+              f"the topology phase made no {route} launch")
+    return dict(routes.counts), flush_kernel
 
 
 def main() -> int:
@@ -4057,7 +4601,12 @@ def main() -> int:
     replication_launches, storm_kernel = phase_replication(
         torch, np, S, P, RC, smi)
 
-    # 14. kernels and device
+    # 14. the parallel queue executor, resharding and the capacity
+    # autopilot, launches counted by route inside the phase
+    topology_launches, flush_kernel = phase_topology(
+        torch, np, S, P, RC, smi)
+
+    # 15. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -4072,7 +4621,8 @@ def main() -> int:
             serve_launches.values()) + sum(parallel_launches.values())
         + sum(service_launches.values())
         + sum(frontend_launches.values())
-        + sum(replication_launches.values()),
+        + sum(replication_launches.values())
+        + sum(topology_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -4095,6 +4645,12 @@ def main() -> int:
         "storm_bound_ms": [r["int32"]["bound_ms"] for r in storm_kernel],
         "storm_shape": [f"T={r['T']} L={r['lanes']} R_pad={r['R_pad']}"
                         for r in storm_kernel],
+        "reshard_flush_ms": [r["int32"]["ms"] for r in flush_kernel],
+        "reshard_flush_bound_ms": [r["int32"]["bound_ms"]
+                                   for r in flush_kernel],
+        "reshard_flush_shape": [
+            f"T={r['T']} L={r['lanes']} R_pad={r['R_pad']}"
+            for r in flush_kernel],
         "tick_ms": tick_kernel["ms"], "tick_plain_ms": tick_kernel["plain_ms"],
         "tick_bound_ms": tick_kernel["bound_ms"],
         "tick_shape": f"T={tick_kernel['T']} L={tick_kernel['lanes']} "
@@ -4106,7 +4662,7 @@ def main() -> int:
                               "rebuild_many": launches_rebuild,
                               **serve_launches, **parallel_launches,
                               **service_launches, **frontend_launches,
-                              **replication_launches},
+                              **replication_launches, **topology_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

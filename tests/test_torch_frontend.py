@@ -561,23 +561,64 @@ def test_serving_reads_match_host_replay(both):
 
 
 def test_port_admin_refuses_unported_planes():
+    """The Onebox twin refuses only the planes the port has not yet
+    (the worker service, fault injection, the sanitizer); the reshard
+    verbs, the admin queue view and the autopilot verbs answer as the
+    reference's do on the same calls, timings left out."""
+    from cadence_tpu.testing.onebox import Onebox as JaxOnebox
     from cadence_tpu_torch.runtime.api import BadRequestError
     from cadence_tpu_torch.testing.onebox import Onebox
 
-    box = Onebox(num_shards=1, device="cpu").start()
+    def script(box):
+        admin, out = box.admin, []
+        for name, call in (
+                ("status", admin.reshard_status),
+                ("split", lambda: admin.reshard_split(0)),
+                ("queues 2", lambda: admin.describe_queue_states(2)),
+                ("merge", lambda: admin.reshard_merge(2, 0)),
+                ("status after", admin.reshard_status),
+                ("queues 0", lambda: admin.describe_queue_states(0)),
+                ("queues gone", lambda: admin.describe_queue_states(2)),
+                ("autopilot", admin.autopilot_status)):
+            try:
+                got = call()
+            except Exception as e:  # the error's type and text compare
+                got = (type(e).__name__, str(e))
+            if isinstance(got, dict):
+                got = {k: v for k, v in got.items()
+                       if k not in ("handoff_ms", "pause_ms")}
+                if isinstance(got.get("last_plan"), dict):
+                    got["last_plan"] = {
+                        k: v for k, v in got["last_plan"].items()
+                        if k not in ("handoff_ms", "pause_ms")}
+            out.append((name, got))
+        return out
+
+    got = {}
+    for key, box in (("jax", JaxOnebox(num_shards=2, start_worker=False)),
+                     ("port", Onebox(num_shards=2, device="cpu"))):
+        box.start()
+        try:
+            got[key] = script(box)
+        finally:
+            box.stop()
+    assert got["port"] == got["jax"]
+    assert got["port"][1][1]["state"] == "COMMITTED"
+    assert got["port"][-1][1][0] == "BadRequestError"
+
+    box = Onebox(num_shards=1, autopilot=True, queue_parallel=2,
+                 device="cpu").start()
     try:
-        for call in (lambda: box.admin.reshard_split(0),
-                     lambda: box.admin.reshard_merge(0, 1),
-                     box.admin.reshard_status,
-                     lambda: box.admin.describe_queue_states(0),
-                     box.admin.autopilot_status):
-            with pytest.raises(BadRequestError, match="not"):
-                call()
+        assert box.history.queue_executor is box.queue_executor
+        assert box.admin.autopilot_pause("drill")["paused"] is True
+        assert box.admin.autopilot_resume()["paused"] is False
+        assert box.admin.autopilot_status()["epochs_run"] >= 0
     finally:
         box.stop()
+    with pytest.raises(BadRequestError):
+        Onebox(num_shards=1, device="cpu").admin.autopilot_status()
     for kw in ({"start_worker": True}, {"faults": object()},
-               {"sanitize": True}, {"autopilot": True},
-               {"queue_parallel": 2}):
+               {"sanitize": True}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Onebox(device="cpu", **kw)
 

@@ -205,7 +205,9 @@ def test_import_hygiene():
     host (service, matching, clients), the frontend, the worker SDK,
     visibility, archival, the cluster metadata, the message bus, the
     replication planes, the standby queues, the wire codec, the link
-    simulator and the onebox and serving-demo twins included, loads
+    simulator, the parallel queue executor, resharding, the capacity
+    autopilot, the conflict-matrix artifact, the trimmed config, the
+    topology cells and the onebox and serving-demo twins included, loads
     neither jax nor the reference package."""
     code = (
         "import sys\n"
@@ -231,6 +233,12 @@ def test_import_hygiene():
         "import cadence_tpu_torch.runtime.queues.standby\n"
         "import cadence_tpu_torch.rpc, cadence_tpu_torch.testing.faults\n"
         "import cadence_tpu_torch.utils.task_processor\n"
+        "import cadence_tpu_torch.runtime.queues.parallel\n"
+        "import cadence_tpu_torch.runtime.resharding\n"
+        "import cadence_tpu_torch.runtime.autopilot\n"
+        "import cadence_tpu_torch.analysis.artifact\n"
+        "import cadence_tpu_torch.config.static\n"
+        "import cadence_tpu_torch.testing.topology_cells\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"

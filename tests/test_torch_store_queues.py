@@ -169,3 +169,121 @@ def test_defer_wheel_rewind_drops_held_tasks():
     time.sleep(0.25)
     assert ack.take_retries() == [] and wakes == []
     assert ack.add(8)  # re-read after the rewind: taken as new
+
+
+@pytest.mark.parametrize("pkg", ["cadence_tpu", "cadence_tpu_torch"])
+def test_rewind_rereads_a_skipped_task_above_a_running_one(pkg):
+    """A failover rewind must re-read what was read above its level even
+    when a task still running holds the ack level at or below it. The
+    new active side's transfer pump took task 25 (slow) and 26 (the live
+    workflow's decision, skipped as the standby's and completed) before
+    the flip; both failover rewinds came to 25 while 25 still ran. The
+    reference's ``rewind`` returns there (its level is not below the
+    ack level), so 26 stays completed and the sweep passes it: the
+    decision never runs on the new active side. The port re-reads it."""
+    import importlib
+
+    QueueAckManager = importlib.import_module(
+        f"{pkg}.runtime.queues.ack").QueueAckManager
+    persisted = []
+    ack = QueueAckManager(24, update_shard_ack=persisted.append)
+    gen = ack.generation()
+    assert ack.add(25, generation=gen) and ack.add(26, generation=gen)
+    ack.complete(26)                       # skipped before the flip
+    assert ack.update_ack_level() == 24    # 25 is still running
+    ack.rewind(25)                         # the failover listener
+    ack.rewind(25)                         # the standby's handover
+    ack.complete(25)                       # the slow task finishes
+    if pkg == "cadence_tpu":
+        assert not ack.add(26)             # the fault the port fixes
+        assert ack.update_ack_level() == 26
+        return
+    assert ack.read_level == 25 and ack.generation() != gen
+    assert ack.update_ack_level() == 25 and persisted == [25]
+    assert ack.add(26, generation=ack.generation())  # re-read and re-run
+    assert ack.update_ack_level() == 25
+    ack.complete(26)
+    assert ack.update_ack_level() == 26
+
+
+def test_rewind_keeps_the_retry_of_a_reread_entry():
+    """A rewind over a due held entry, then a re-read that holds it
+    again: the stale release must not hand the new held task away."""
+    ack, wakes = _ack(True, level=0)
+    ack.add(3)
+    ack.defer(3, 0.01, task="first")
+    _wait(lambda: wakes)                 # 3 is due: its key waits
+    ack.rewind(1)                        # drops 3 and its held task
+    assert ack.add(3)                    # re-read
+    ack.defer(3, 5.0, task="second")     # and held again
+    assert ack.take_retries() == []
+    assert ack._held_tasks == {3: "second"} and ack.held() == 1
+
+
+def test_stale_wave_runs_the_tasks_a_rewind_kept():
+    """An executor wave collected before a rewind skips the entries the
+    rewind dropped and runs the ones it kept (at or below its level):
+    skipped, a kept entry would stay in flight and wedge the sweep."""
+    from cadence_tpu_torch.core.tasks import TransferTask
+    from cadence_tpu_torch.core.enums import TransferTaskType
+    from cadence_tpu_torch.runtime.queues.ack import QueueAckManager
+    from cadence_tpu_torch.runtime.queues.parallel import (
+        ParallelQueueExecutor, _SchedTask, _Slot)
+
+    class Proc:
+        name = "transfer-0"
+        ack = QueueAckManager(0)
+        ran = []
+
+        def parallel_run(self, task, key):
+            self.ran.append(key)
+
+    ex = ParallelQueueExecutor(parallelism=2)
+    proc = Proc()
+    gen = proc.ack.generation()
+    assert proc.ack.add_batch([1, 2, 3], generation=gen) == [True] * 3
+    tasks = [TransferTask(task_type=TransferTaskType.DecisionTask,
+                          domain_id="d", workflow_id="wf", task_id=k)
+             for k in (1, 2, 3)]
+    slot = _Slot(proc)
+    group = [_SchedTask(slot, t, t.task_id, gen, (0, i), ex.matrix)
+             for i, t in enumerate(tasks)]
+    proc.ack.rewind(1)                   # keeps 1, drops 2 and 3
+    assert proc.ack.add(2, generation=proc.ack.generation())  # re-read
+    ex._run_group(group)
+    assert proc.ran == [1] and ex.stale_skipped == 2
+
+
+def test_handover_drill_with_a_slow_task_below_the_held_decision(
+        monkeypatch):
+    """The managed-handover drill on the port, with the interleaving
+    that lost the live decision: on the new active side a transfer task
+    just below the held decision runs for 0.9 s, and the flip lands
+    0.1 s after the drain, so both failover rewinds come while it runs.
+    The live workflow must still complete on the new active side."""
+    from tests import test_torch_replication_cases as H
+    from cadence_tpu_torch.runtime.queues import transfer as T
+    from cadence_tpu_torch.runtime.replication import failover as F
+
+    process, flip = T.TransferQueueProcessor._process, \
+        F.DomainFailoverCoordinator._flip
+
+    def slow_process(self, task):
+        cm = self.engine.cluster_metadata
+        if cm.current_cluster_name == "standby" \
+                and task.workflow_id == "fo-live" \
+                and task.task_type == T.TransferTaskType.RecordWorkflowStarted:
+            time.sleep(0.9)
+        return process(self, task)
+
+    def late_flip(self, *a, **kw):
+        time.sleep(0.1)
+        return flip(self, *a, **kw)
+
+    monkeypatch.setattr(T.TransferQueueProcessor, "_process", slow_process)
+    monkeypatch.setattr(F.DomainFailoverCoordinator, "_flip", late_flip)
+    ns = H._load("test_failover_drills")
+    run_worker = ns["_run_worker"]
+    ns["_run_worker"] = lambda *a, **kw: run_worker(*a, timeout_s=15.0)
+    ns["TestFailoverManagedHandover"]() \
+        .test_managed_handover_zero_lost_progress()
