@@ -11,7 +11,7 @@ newest valid snapshot: a repeat rebuild costs O(new events).
 * :mod:`fingerprint`: the hash of the replay contract's sources (the CUDA
   kernels included), stamped on every record;
 * :mod:`store`: the :class:`CheckpointStore` contract and its memory
-  backend;
+  and sqlite backends;
 * :mod:`manager`: lookup (fingerprint, capacities and NDC-LCA
   validation), write policy, retention, and the conversions to the
   packer's resume states. Every store interaction is failure-isolated: a
@@ -26,7 +26,11 @@ from .manager import (
     checkpoint_from_replay,
 )
 from .record import ReplayCheckpoint
-from .store import CheckpointStore, MemoryCheckpointStore
+from .store import (
+    CheckpointStore,
+    MemoryCheckpointStore,
+    SqliteCheckpointStore,
+)
 
 __all__ = [
     "CheckpointManager",
@@ -34,6 +38,7 @@ __all__ = [
     "CheckpointStore",
     "MemoryCheckpointStore",
     "ReplayCheckpoint",
+    "SqliteCheckpointStore",
     "checkpoint_from_replay",
     "transition_fingerprint",
 ]

@@ -1,12 +1,13 @@
-"""Checkpoint store: the contract and its memory backend.
+"""Checkpoint store: the contract and its memory and sqlite backends.
 
 A copy of the reference package's ``CheckpointStore`` and
 ``MemoryCheckpointStore``: records keyed by ``(branch_key, event_id)``
 with a tree-scoped index, stored as the serde JSON blob so corruption and
 torn writes behave as in a durable store. Reads are defensive: a record
 that fails to decode is skipped, not raised, so a corrupted checkpoint
-degrades that one resume to a full replay. The reference's sqlite backend
-is not ported.
+degrades that one resume to a full replay. ``SqliteCheckpointStore`` is
+the durable backend over the sqlite bundle's connection (the
+``replay_checkpoints`` table), as in the reference.
 """
 
 from __future__ import annotations
@@ -132,3 +133,81 @@ class MemoryCheckpointStore(CheckpointStore):
             key = (branch_key, event_id)
             if key in self._rows:
                 self._rows[key] = "{corrupted" + self._rows[key][:32]
+
+
+class SqliteCheckpointStore(CheckpointStore):
+    """Sqlite backend over the bundle's shared connection (the
+    ``replay_checkpoints`` table, schema v3). ``db`` is the sqlite
+    bundle's ``_Db`` — duck-typed on its ``txn()`` context manager so
+    this module never imports the backend package."""
+
+    def __init__(self, db) -> None:
+        self.db = db
+
+    def put_checkpoint(self, ckpt: ReplayCheckpoint) -> None:
+        blob = ckpt.to_json()
+        with self.db.txn() as c:
+            c.execute(
+                "INSERT OR REPLACE INTO replay_checkpoints "
+                "(branch_key, event_id, tree_id, fingerprint, created_at,"
+                " blob) VALUES (?,?,?,?,?,?)",
+                (ckpt.branch_key, ckpt.event_id, ckpt.tree_id,
+                 ckpt.fingerprint, int(ckpt.created_at), blob),
+            )
+
+    def list_checkpoints(self, branch_key: str) -> List[ReplayCheckpoint]:
+        with self.db.txn() as c:
+            rows = c.execute(
+                "SELECT blob FROM replay_checkpoints WHERE branch_key=? "
+                "ORDER BY event_id DESC",
+                (branch_key,),
+            ).fetchall()
+        return _decode_many(r[0] for r in rows)
+
+    def list_tree_checkpoints(self, tree_id: str) -> List[ReplayCheckpoint]:
+        with self.db.txn() as c:
+            rows = c.execute(
+                "SELECT blob FROM replay_checkpoints WHERE tree_id=? "
+                "ORDER BY event_id DESC",
+                (tree_id,),
+            ).fetchall()
+        return _decode_many(r[0] for r in rows)
+
+    def delete_checkpoint(self, branch_key: str, event_id: int) -> None:
+        with self.db.txn() as c:
+            c.execute(
+                "DELETE FROM replay_checkpoints WHERE branch_key=? "
+                "AND event_id=?",
+                (branch_key, event_id),
+            )
+
+    def prune_tree(self, tree_id: str, keep_last: int) -> int:
+        with self.db.txn() as c:
+            keys = c.execute(
+                "SELECT branch_key, event_id FROM replay_checkpoints "
+                "WHERE tree_id=? ORDER BY event_id DESC",
+                (tree_id,),
+            ).fetchall()
+            drop = keys[max(keep_last, 0):]
+            for bk, eid in drop:
+                c.execute(
+                    "DELETE FROM replay_checkpoints WHERE branch_key=? "
+                    "AND event_id=?",
+                    (bk, eid),
+                )
+            return len(drop)
+
+    def newest_event_id(self, branch_key: str) -> int:
+        with self.db.txn() as c:
+            row = c.execute(
+                "SELECT MAX(event_id) FROM replay_checkpoints "
+                "WHERE branch_key=?",
+                (branch_key,),
+            ).fetchone()
+        return int(row[0] or 0)
+
+    def count_checkpoints(self) -> int:
+        with self.db.txn() as c:
+            return c.execute(
+                "SELECT COUNT(*) FROM replay_checkpoints"
+            ).fetchone()[0]

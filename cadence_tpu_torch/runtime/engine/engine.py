@@ -433,44 +433,50 @@ class HistoryEngine:
     def signal_with_start_workflow_execution(
         self, request: SignalWithStartRequest
     ) -> str:
+        # delegate through the RAW methods: the instance's are
+        # metric-wrapped (instrument_methods), and going through them
+        # would phantom-count every SignalWithStart as a start/signal RPC
+        # too (the reference instruments at the handler boundary only)
+        from ...utils.metrics_defs import raw_method
+
         request.validate()
         start = request.start
         domain = self.domains.get_by_name(start.domain)
-        # running workflow -> plain signal (reference historyEngine.go:1606)
-        try:
-            cur = self.shard.persistence.execution.get_current_execution(
-                self.shard.shard_id, domain.info.id, start.workflow_id
-            )
-            run_id = cur.run_id
-            if cur.state != int(WorkflowState.Completed):
-                # delegate through the RAW methods: the instance's are
-                # metric-wrapped (instrument_methods), and going through
-                # them would phantom-count every SignalWithStart as a
-                # start/signal RPC too (the reference instruments at
-                # the handler boundary only)
-                from ...utils.metrics_defs import raw_method
-
-                raw_method(self.signal_workflow_execution)(
-                    SignalRequest(
-                        domain=start.domain,
-                        workflow_id=start.workflow_id,
-                        run_id=run_id,
-                        signal_name=request.signal_name,
-                        input=request.signal_input,
-                        identity=start.identity,
-                    )
+        # a concurrent start can create the run between the probe and
+        # this start: the start then collides with a running workflow,
+        # and the second attempt signals it (one attempt lost the signal
+        # whenever two closes triggered the archival workflow at once)
+        for attempt in range(2):
+            # running workflow -> plain signal (reference
+            # historyEngine.go:1606)
+            try:
+                cur = self.shard.persistence.execution.get_current_execution(
+                    self.shard.shard_id, domain.info.id, start.workflow_id
                 )
-                return run_id
-        except (EntityNotExistsServiceError, EntityNotExistsError):
-            pass
-        from ...utils.metrics_defs import raw_method
-
-        return raw_method(self.start_workflow_execution)(
-            start,
-            domain_id=domain.info.id,
-            signal_name=request.signal_name,
-            signal_input=request.signal_input,
-        )
+                if cur.state != int(WorkflowState.Completed):
+                    raw_method(self.signal_workflow_execution)(
+                        SignalRequest(
+                            domain=start.domain,
+                            workflow_id=start.workflow_id,
+                            run_id=cur.run_id,
+                            signal_name=request.signal_name,
+                            input=request.signal_input,
+                            identity=start.identity,
+                        )
+                    )
+                    return cur.run_id
+            except (EntityNotExistsServiceError, EntityNotExistsError):
+                pass
+            try:
+                return raw_method(self.start_workflow_execution)(
+                    start,
+                    domain_id=domain.info.id,
+                    signal_name=request.signal_name,
+                    signal_input=request.signal_input,
+                )
+            except WorkflowExecutionAlreadyStartedServiceError:
+                if attempt:
+                    raise
 
     # -- terminate / cancel -------------------------------------------
 

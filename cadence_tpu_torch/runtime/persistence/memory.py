@@ -815,6 +815,15 @@ class MemoryHistoryManager(I.HistoryManager):
                     for nid in [n for n in nodes if n >= end]:
                         del nodes[nid]
 
+    def list_history_trees(self):
+        """All (tree_id, branches) pairs — the history scavenger's scan
+        surface (reference: GetAllHistoryTreeBranches)."""
+        with self._lock:
+            return [
+                (tree_id, [copy.deepcopy(t) for t in branches.values()])
+                for tree_id, branches in self._branches.items()
+            ]
+
     def get_history_tree(self, tree_id: str) -> List[BranchToken]:
         with self._lock:
             return [

@@ -1,16 +1,22 @@
-"""JSON codecs for snapshots that carry bytes.
+"""JSON serialization for snapshots and queue-task records (shared by
+durable backends).
 
-A copy of the snapshot codecs of the reference package's
-``runtime/persistence/serde.py``: bytes become ``{"__b": base64}``, sets
-sorted lists, and a user dict that carries a marker key is escaped, so a
-checkpoint's side table (memo and search-attribute payloads) round-trips.
+A copy of the reference package's ``runtime/persistence/serde.py``:
+bytes become ``{"__b": base64}``, sets sorted lists, and a user dict that
+carries a marker key is escaped, so a checkpoint's side table (memo and
+search-attribute payloads) round-trips; the queue-task codecs write the
+same JSON as the reference's, so one sqlite file serves both packages.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 from typing import Any, Dict
+
+from ...core.enums import TimerTaskType, TransferTaskType
+from ...core.tasks import ReplicationTask, TimerTask, TransferTask
 
 
 def _enc(obj: Any) -> Any:
@@ -51,3 +57,37 @@ def snapshot_to_json(snapshot: Dict[str, Any]) -> str:
 
 def snapshot_from_json(s: str) -> Dict[str, Any]:
     return _dec(json.loads(s))
+
+
+def transfer_to_json(t: TransferTask) -> str:
+    return json.dumps(dataclasses.asdict(t))
+
+
+def transfer_from_json(s: str) -> TransferTask:
+    d = json.loads(s)
+    d["task_type"] = TransferTaskType(d["task_type"])
+    return TransferTask(**d)
+
+
+def timer_to_json(t: TimerTask) -> str:
+    return json.dumps(dataclasses.asdict(t))
+
+
+def timer_from_json(s: str) -> TimerTask:
+    d = json.loads(s)
+    d["task_type"] = TimerTaskType(d["task_type"])
+    return TimerTask(**d)
+
+
+def replication_to_json(t: ReplicationTask) -> str:
+    d = dataclasses.asdict(t)
+    d["branch_token"] = t.branch_token.decode("latin-1")
+    d["new_run_branch_token"] = t.new_run_branch_token.decode("latin-1")
+    return json.dumps(d)
+
+
+def replication_from_json(s: str) -> ReplicationTask:
+    d = json.loads(s)
+    d["branch_token"] = d["branch_token"].encode("latin-1")
+    d["new_run_branch_token"] = d["new_run_branch_token"].encode("latin-1")
+    return ReplicationTask(**d)

@@ -247,10 +247,14 @@ class TransferQueueProcessor(QueueProcessorBase):
                 "memo": dict(ei.memo),
                 "search_attributes": dict(ei.search_attributes),
                 "branch_token": ei.branch_token,
+                # the parent's domain id lives on its execution info (a
+                # MutableState has no domain_id: reading one failed every
+                # close of a parent with started children, so the close
+                # task never completed and no policy applied)
                 "children": [
                     {
                         "policy": ci.parent_close_policy,
-                        "domain_id": ms.domain_id,
+                        "domain_id": ei.domain_id,
                         "domain_name": ci.domain_name,
                         "workflow_id": ci.started_workflow_id,
                         "run_id": ci.started_run_id,

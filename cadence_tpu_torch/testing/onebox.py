@@ -12,10 +12,12 @@ the first device replay) is where the ``ResidentEngine`` of
 rebuild, and where the reshard coordinator that the admin verbs and the
 capacity autopilot (``autopilot``) share flushes and warms the moving
 workflows. ``queue_parallel`` drives the box's transfer, timer and
-standby queues through one ``ParallelQueueExecutor``. The planes the
-port has not yet raise ``NotImplementedError`` when asked for: the
-worker service (``start_worker``, so it defaults to False here), fault
-injection (``faults``) and the concurrency sanitizer (``sanitize``).
+standby queues through one ``ParallelQueueExecutor``. ``start_worker``
+(default True, as in the reference) starts the worker service on the
+system domain at ``start()`` and puts its archival trigger on every
+shard's close processor. The planes the port has not yet raise
+``NotImplementedError`` when asked for: fault injection (``faults``) and
+the concurrency sanitizer (``sanitize``).
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ from ..runtime.membership import single_host_monitor
 from ..runtime.persistence.memory import create_memory_bundle
 from ..runtime.service import HistoryService
 from ..visibility import AdvancedVisibilityStore
+from ..worker.archiver import ArchivalClient
+from ..worker.service import WorkerService
 
 
-def _refuse_unported(start_worker, faults, sanitize) -> None:
-    for name, asked in (("start_worker", start_worker),
-                        ("faults", faults is not None),
+def _refuse_unported(faults, sanitize) -> None:
+    for name, asked in (("faults", faults is not None),
                         ("sanitize", sanitize)):
         if asked:
             raise NotImplementedError(
@@ -56,7 +59,7 @@ class Onebox:
         persistence=None,
         cluster_metadata: Optional[ClusterMetadata] = None,
         host_identity: str = "onebox-0",
-        start_worker: bool = False,
+        start_worker: bool = True,
         queue_worker_count: int = 4,
         faults=None,
         time_source=None,
@@ -68,7 +71,7 @@ class Onebox:
         queue_parallel: int = 0,
         device="cuda",
     ) -> None:
-        _refuse_unported(start_worker, faults, sanitize)
+        _refuse_unported(faults, sanitize)
         self.persistence = persistence or create_memory_bundle()
         # every Onebox carries a real metrics scope and a metrics-
         # wrapped bundle: per-store histogram latencies and the
@@ -195,16 +198,35 @@ class Onebox:
                 monitor=self.monitor,
                 metrics=self.metrics,
             )
+        self.worker: Optional[WorkerService] = None
+        self._start_worker = start_worker
         self._started = False
 
     def start(self) -> "Onebox":
         if self._started:
             return self
         self.history.start()
+        if self._start_worker:
+            self.worker = WorkerService(
+                self.frontend, self.persistence,
+                num_shards=self.history.controller.num_shards,
+                bus=self.bus, domain_handler=self.domain_handler,
+                history_service=self.history,
+            )
+            # archival trigger on every shard's close processor
+            client = ArchivalClient(self.frontend, self.domains)
+            for shard_id in self.history.controller.owned_shards():
+                handle = self.history.controller._handles[shard_id]
+                for p in handle.processors:
+                    if hasattr(p, "_process_close"):
+                        p.archival_client = client
+            self.worker.start()
         self._started = True
         return self
 
     def stop(self) -> None:
+        if self.worker is not None:
+            self.worker.stop()
         self.history.stop()
         self.matching.shutdown()
         self.bus.close()

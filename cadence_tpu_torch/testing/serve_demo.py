@@ -52,7 +52,7 @@ def run_demo(workflows: int = 3, requests: int = 18, qps: float = 60.0,
             print(msg, file=sys.stderr)
 
     box = Onebox(num_shards=2, checkpoints=True, serving=True,
-                 device=device).start()
+                 start_worker=False, device=device).start()
     w = Worker(box.frontend, "serve-demo", "serve-demo-tl",
                identity="serve-demo-worker")
     w.register_workflow("signal-sink", _signal_sink)

@@ -6,8 +6,10 @@ Cadence workflows* against the public frontend API via the Go client
 SDK; this package ships a deterministic generator-based mini-SDK
 (sdk.py) and implements the daemons as workflows on top of it.
 
-A copy of the reference package's ``worker/__init__.py`` with the SDK
-only: the worker service and its daemons are not ported yet.
+A copy of the reference package's ``worker/__init__.py``: the SDK is
+exported here, the daemons and the ``WorkerService`` that assembles them
+live in their own modules (``archiver``, ``scanner``, ``batcher``,
+``parent_close_policy``, ``indexer``, ``replicator``, ``service``).
 """
 
 from .sdk import (

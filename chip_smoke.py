@@ -92,10 +92,10 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     one round's device-busy share (torch.profiler);
 12. ``frontend``: the user path (``cadence_tpu_torch/frontend``,
     ``worker``, ``testing/onebox``): the port's Onebox twin over a 4-shard
-    history host with a 4,096-lane ``ResidentEngine``, 16 SDK ``Worker``s
-    (sticky) on one task list, 4,096 workflows started through the
+    history host with a ``ResidentEngine`` of a lane a workflow, 16 SDK
+    ``Worker``s (sticky) on one task list, 2,048 workflows started through the
     frontend (every fourth with an activity, each then waiting on
-    signals), an open-loop burst of 8,192 requests (300 qps, bursty), each
+    signals), an open-loop burst of 4,096 requests (300 qps, bursty), each
     a frontend signal and a ``serving_read`` (a workflow's first read a
     cold miss that seats it), every read against the host replay at its
     tip, queries the SDK answers and histories on a seeded 256, the
@@ -106,8 +106,8 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
 13. ``replication``: the replication planes (``cadence_tpu_torch/runtime/
     replication``, the standby queues) between two port clusters whose
     history services rebuild on the card: (a) ``xdc``, 4 shards a side,
-    4,096 workflows started and signalled 4 times each on the active (no
-    worker: 20,480 replication tasks), the standby, down meanwhile, comes
+    2,048 workflows started and signalled 4 times each on the active (no
+    worker: 10,240 replication tasks), the standby, down meanwhile, comes
     up and pulls through ``enable_replication_from`` over an unthrottled
     simulated link, every state and history equal on both sides and no
     passive task dispatched; a managed handover, a signal a workflow on the
@@ -117,9 +117,10 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     storm (3,334 workflows x 3 tasks) in one cycle on a 1-shard standby,
     one ``rebuild_many`` of 3,334 on the card, every conflict closed, a
     seeded 64 against the one-at-a-time path on a CPU box; (b2)
-    ``storm_deep``: phase 8's 256 retry_deep histories of 1,000 events
-    seeded task by task in fetch pages, then one cycle of a divergent tail
-    each (one ``rebuild_many`` of 256 replaying ~1,000 events each), every
+    ``storm_deep``: the first 64 of phase 8's retry_deep histories of
+    1,000 events seeded task by task in fetch pages, then one cycle of a
+    divergent tail each (one ``rebuild_many`` of 64 replaying ~1,000
+    events each), every
     state against the host replay of its new branch, a seeded 16 against
     the one-at-a-time path, the cycle split into plan, rebuild and apply,
     and the FSM kernel at the storm's batch against its bound; (d)
@@ -157,7 +158,32 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     splits it on the card, then idle until it merges. FSM launches by
     route, counted on the launching thread: the reshard flush, the warm
     and the diurnal engine;
-15. the refresh's line (``device_passes``: torch ops, no kernel of its
+15. ``worker_store``: the worker services (``cadence_tpu_torch/worker``)
+    and the durable sqlite store (``runtime/persistence/sqlite.py``, the
+    ``SqliteCheckpointStore``): (a) ``durable_rebuild``, phase 8's
+    ``rebuild_warm`` cohort's first 64 runs written into a sqlite file
+    one transaction a batch (commits/s), then phase 8's prefix, cold and
+    warm passes with
+    ``rebuild_many`` over that bundle and its checkpoint store, every run
+    against the host replay over the same store and phase 8's
+    memory-store result, the read/dispatch/rehydrate split beside phase
+    8's, and the FSM kernel at the cold batch; (b) ``worker_services``:
+    the Onebox twin over a sqlite file with the worker services on (the
+    default), 4 shards, checkpoints, a resident engine and 16 SDK
+    workers; 128 workflows run to completion and archived (history and
+    visibility, ``file://``), 8 parents of 4 children closed under the
+    parent-close policy (inline, and offloaded to its system workflow),
+    64 open workflows read twice through ``serving_read`` (every read
+    against the host replay) then terminated by one batch workflow
+    through a visibility query, the retention delete of every closed run
+    with every history then read from the archive, the indexer's
+    visibility counts, 64 orphan history trees and two scavenger passes;
+    close-to-archived p50/p99, the batch's and a pass's wall, commits/s,
+    FSM launches by route; (c) ``push_replication``: the standby's
+    ``WorkerService`` applying the active's published replication tasks
+    (512 workflows, 2,560 tasks) and its domain records, every state and
+    history equal on both sides;
+16. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -167,13 +193,17 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1215,11 +1245,13 @@ def store_run(hist, i, batches):
         branch_token=branch.to_json().encode())
 
 
-def warm_cohort():
+def warm_cohort(hist=None, n=None):
     """bench.py's rebuild_warm cohort: retry_deep histories cut where
     the last ``WARM_TAIL`` of their events starts (at least the start
-    batch kept); the prefixes go to a memory history store, the tails
-    wait to be appended after the prefix pass."""
+    batch kept); the prefixes go to ``hist`` (a memory history store by
+    default), the tails wait to be appended after the prefix pass.
+    ``write_s`` is the prefixes' write. ``n`` (default ``WARM_N``) takes
+    the cohort's first runs."""
     from cadence_tpu_torch.runtime.persistence.memory import (
         MemoryHistoryManager)
     from cadence_tpu_torch.testing import workloads as W
@@ -1227,7 +1259,7 @@ def warm_cohort():
     rng = random.Random(45)
     full, cuts = [], []
     total = suffix = 0
-    for _ in range(WARM_N):
+    for _ in range(WARM_N if n is None else n):
         batches = W.retry_deep_history(rng, depth=WARM_DEPTH)
         n_events = sum(len(b) for b in batches)
         cut, seen = len(batches), 0
@@ -1240,11 +1272,14 @@ def warm_cohort():
         cuts.append(cut)
         total += n_events
         suffix += sum(len(b) for b in batches[cut:])
-    hist = MemoryHistoryManager()
+    hist = MemoryHistoryManager() if hist is None else hist
+    t0 = time.perf_counter()
     reqs = [store_run(hist, i, b[:c])
             for i, (b, c) in enumerate(zip(full, cuts))]
     return dict(hist=hist, reqs=reqs, full=full, cuts=cuts,
-                total_events=total, suffix_events=suffix)
+                total_events=total, suffix_events=suffix,
+                write_s=time.perf_counter() - t0,
+                prefix_batches=sum(cuts))
 
 
 def append_tails(c):
@@ -1390,6 +1425,8 @@ def phase_rebuild(torch, np, unpack, RC):
                               ("one_request", one_out))}
     mism["storm_sample"] = storm_mism
 
+    # phase 15 holds its durable rebuilds against these
+    c["cold_keys"] = [rebuild_key(unpack, g) for g in cold_out]
     passes = WARM_ITERS + 1
     reg = warm_scope.registry
     hits = reg.counter_value("checkpoint_hit")
@@ -2619,22 +2656,24 @@ def phase_service(torch, np, S, RC, smi):
 
 
 # phase 12, the frontend and the worker SDK: the port's Onebox twin with
-# the history host's resident engine (4,096 lanes, the serving caps)
-# answered by 16 SDK workers on one task list, sticky on, as a fleet of
-# worker processes polls it. 4,096 workflows started through the
-# frontend (every fourth runs one activity, each then loops on a "ping"
-# signal), then serve_demo's open-loop burst at the host's size: 8,192
-# requests (2 a workflow, round-robin) on ArrivalProcess(qps=300,
+# the history host's resident engine (a lane a workflow, the serving
+# caps) answered by 16 SDK workers on one task list, sticky on, as a
+# fleet of worker processes polls it. 2,048 workflows (4,096, the history
+# host's size, until phase 15 needed the run's time: a slow host took
+# 145 s for them) started through the frontend (every fourth runs one
+# activity, each then loops on a "ping" signal), then serve_demo's
+# open-loop burst: 4,096 requests (2 a workflow, round-robin) on
+# ArrivalProcess(qps=300,
 # kind="bursty", seed=11), each a frontend signal and a serving_read, the
 # first read of a workflow a cold miss that seats it; then queries and
 # histories of a seeded 256, the visibility counts, and the drain. The
 # requests due at one moment form a batch (signals, then reads), whose
 # first read ticks; a burst that keeps its schedule makes batches of a
-# request or two, so the round-robin reads a lane about once per 4,096
+# request or two, so the round-robin reads a lane about once per 2,048
 # ticks. A lane stays seated while idle for fewer than FE_IDLE_TICKS
 # ticks (the engine's default, 256, would evict it between its reads)
-FE_SHARDS, FE_WORKFLOWS, FE_WORKERS, FE_ACTIVITY_EVERY = 4, 4096, 16, 4
-FE_QPS, FE_REQUESTS, FE_ARRIVAL_SEED = 300.0, 8192, 11
+FE_SHARDS, FE_WORKFLOWS, FE_WORKERS, FE_ACTIVITY_EVERY = 4, 2048, 16, 4
+FE_QPS, FE_REQUESTS, FE_ARRIVAL_SEED = 300.0, 4096, 11
 FE_SAMPLE, FE_SAMPLE_SEED, FE_BUSY_REQUESTS = 256, 12, 1024
 FE_IDLE_TICKS = 2 * FE_WORKFLOWS
 FE_DOMAIN, FE_TASK_LIST, FE_WAIT_S = "fe-domain", "fe-tl", 600.0
@@ -2645,17 +2684,17 @@ class FrontendRoutes:
     Δ composition of a tick (the engine's ``_compose``) and the cold
     misses that seat a workflow (``read_through``). A launch counts to
     the innermost route running: a cold miss that ticks a dirty lane
-    counts that tick's launch as a tick."""
+    counts that tick's launch as a tick. ``prefix`` names the phase."""
 
-    def __init__(self, RC):
+    def __init__(self, RC, prefix="frontend"):
         self.RC = RC
-        self.counts = {"frontend_tick": 0, "frontend_cold_miss": 0}
+        self.tick, self.cold = f"{prefix}_tick", f"{prefix}_cold_miss"
+        self.counts = {self.tick: 0, self.cold: 0}
         self._inner = [0]
 
     def wrap(self, engine):
-        engine._compose = self._counted(engine._compose, "frontend_tick")
-        engine.read_through = self._counted(engine.read_through,
-                                            "frontend_cold_miss")
+        engine._compose = self._counted(engine._compose, self.tick)
+        engine.read_through = self._counted(engine.read_through, self.cold)
         return engine
 
     def _counted(self, fn, route):
@@ -2763,7 +2802,7 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
         idle_ticks=FE_IDLE_TICKS, device=device))
     box = Onebox(num_shards=FE_SHARDS, persistence=persistence,
                  checkpoints=checkpoints, serving=engine,
-                 device=device).start()
+                 start_worker=False, device=device).start()
     lat = {k: [] for k in ("start", "signal", "cold_read", "resident_read",
                            "request", "query", "sdk_decision")}
     seen, workers, drained = {}, [], []
@@ -2990,24 +3029,27 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
 # phase 13, the replication planes. (a) xdc: two port clusters of 4
 # shards each (one history host a side, as phases 11-12) sharing a global
 # domain (clusters active and standby, failover version increment 10);
-# 4,096 workflows started on the active and signalled 4 times each, no
-# worker, so every write mints one replication task (20,480); the
+# 2,048 workflows (4,096 until phase 15 needed the run's time: a slow
+# host took 133 s for them) started on the active and signalled 4 times
+# each, no worker, so every write mints one replication task (10,240); the
 # standby, down meanwhile, then comes up and pulls through
 # enable_replication_from over an unthrottled simulated link; a managed
 # handover to the standby, one signal a workflow there, the drain back.
 # (b1) the >=10k-task storm of the reference's replication-storm test
 # (3,334 workflows x 3 tasks) on a 1-shard standby in one cycle. (b2) a
-# conflict storm at 1k depth: phase 8's rebuild_warm cohort (256
-# retry_deep histories of depth 1,000 from random.Random(45)) seeded at
-# version 1 in fetch pages of 512 tasks, then one cycle of a divergent
-# tail each at version 12. (c) the reference bench's replication_lag and
-# failover_drill cells at their own sizes (bench.py:2401-2402,
+# conflict storm at 1k depth: the first 64 of phase 8's rebuild_warm
+# cohort (retry_deep histories of depth 1,000 from random.Random(45); 256
+# until phase 15 needed the run's time: the seeding, task by task, took
+# 51 s on a fast host and 82 s for 128 on a slow one) seeded at version 1
+# in fetch pages of 512 tasks, then one cycle of a divergent tail each at
+# version 12. (c) the reference bench's replication_lag and failover_drill
+# cells at their own sizes (bench.py:2401-2402,
 # :2407-2408)
-XDC_SHARDS, XDC_WORKFLOWS, XDC_SIGNALS, XDC_PAYLOAD = 4, 4096, 4, 96
+XDC_SHARDS, XDC_WORKFLOWS, XDC_SIGNALS, XDC_PAYLOAD = 4, 2048, 4, 96
 REPL_DOMAIN, REPL_DOMAIN_ID, XDC_TASK_LIST = (
     "repl-domain", "repl-domain-0000", "repl-tl")
 STORM10K_N, STORM10K_SAMPLE, STORM10K_SEED = 3334, 64, 13
-DEEP_N, DEEP_DEPTH, DEEP_SEED, DEEP_PAGE = 256, 1000, 45, 512
+DEEP_N, DEEP_DEPTH, DEEP_SEED, DEEP_PAGE = 64, 1000, 45, 512
 DEEP_VERSION, DEEP_SAMPLE, DEEP_SAMPLE_SEED = 12, 16, 14
 INSTALL_N, INSTALL_BEFORE, INSTALL_AFTER = 64, 16, 112
 LAG_CELL = dict(workflows=12, signals_each=48, bytes_per_s=131072.0)
@@ -4086,8 +4128,8 @@ def phase_topo_split_merge(torch, np, S, P, RC, routes, device):
 
     clock = FakeTimeSource()
     box = Onebox(num_shards=TOPO_SHARDS, checkpoints=True,
-                 queue_parallel=TOPO_PARALLEL, device=device,
-                 time_source=clock,
+                 queue_parallel=TOPO_PARALLEL, start_worker=False,
+                 device=device, time_source=clock,
                  cluster_metadata=repl_meta("active")).start()
     spy = RebuildSpy(routes)
     try:
@@ -4199,7 +4241,8 @@ def phase_topo_autopilot(routes, device):
     from cadence_tpu_torch.testing.onebox import Onebox
     from cadence_tpu_torch.utils.hashing import fnv1a32
 
-    box = Onebox(num_shards=2, checkpoints=True, device=device).start()
+    box = Onebox(num_shards=2, checkpoints=True, start_worker=False,
+                 device=device).start()
     try:
         box.domain_handler.register_domain(TOPO_DOMAIN)
         ex = box.persistence.execution
@@ -4355,6 +4398,800 @@ def phase_topology(torch, np, S, P, RC, smi, device="cuda"):
         check(routes.counts[route] > 0,
               f"the topology phase made no {route} launch")
     return dict(routes.counts), flush_kernel
+
+
+# -- phase 15: the worker services over the durable store ----------------
+
+# phase 15, the worker services (cadence_tpu_torch/worker) and the durable
+# sqlite store (runtime/persistence/sqlite.py, the SqliteCheckpointStore).
+# Every count below is cut for the card machine's file system (9p: its
+# sqlite commits, each synced as the store's WAL journal syncs them, run
+# at 1,310-1,720 a second; a cohort of 256 retry_deep runs is 200,000
+# commits, 137 s), and the host paths of a slow host run 1.5-3x slower
+# than a fast one's: the run must end inside its time limit there too.
+# (a) durable_rebuild: the first 64 runs of phase 8's rebuild_warm
+# cohort (256 retry_deep runs of ~1,000 events from random.Random(45))
+# written into a sqlite file one transaction a batch, as store_run
+# writes them, then phase 8's prefix,
+# cold and warm passes with rebuild_many over that bundle and its
+# checkpoint store. (b) worker_services: the Onebox twin over a sqlite
+# file with the worker services on (the reference's default), 4 shards,
+# checkpoints, a resident engine and 16 sticky SDK workers, as phase 12;
+# a domain archiving history and visibility to file:// URIs; 128
+# workflows run to completion (an activity each), each close archived by
+# the archival system workflow; 8 parents of 4 children, 6 under a
+# TERMINATE parent-close policy (applied by the close processor) and 2
+# under ABANDON whose children go to the parent-close-policy system
+# workflow, as a close processor offloads a large fan-out; 64 open
+# workflows terminated by one batch workflow through a visibility query
+# (the batcher's own 50 rps pace); the retention delete of every closed
+# run, reads then served from the archive; 64 orphan history trees and
+# two passes of the history scavenger. The visibility writes also go to
+# a bus topic that the Indexer lands in a second store, as a host that
+# writes visibility through Kafka does. 128 is cut from the history
+# host's 4,096 (phase 11), the parents from 64 and the batch from 256: a
+# closed run costs ~210 commits. (c) push_replication: two Onebox
+# twins sharing the active's message bus; the active's
+# ReplicationPublisher publishes 512 workflows' starts and 4 signals each
+# (2,560 tasks), the standby's WorkerService (replication_sources=
+# ["active"]) applies them through HistoryReplicationConsumer, and its
+# DomainReplicationProcessor the global domain's registration and update
+WS_SHARDS, WS_WORKERS, WS_DOMAIN, WS_TASK_LIST = 4, 16, "ws-domain", "ws-tl"
+WS_COMPLETED, WS_PARENTS, WS_CHILDREN, WS_OFFLOADED = 128, 8, 4, 2
+WS_BATCH, WS_ORPHANS = 64, 64
+DURABLE_N = 64
+WS_PARENT_TASK_LIST, WS_WAIT_S = "ws-parent-tl", 600.0
+PUSH_SHARDS, PUSH_WORKFLOWS, PUSH_SIGNALS = 4, 512, 4
+PUSH_DOMAIN, PUSH_TASK_LIST = "push-domain", "push-tl"
+
+
+def counted_commits(bundle):
+    """The sqlite bundle's committed transactions, counted: its ``_Db``'s
+    ``txn`` wrapped on the instance (the count rises under the store's
+    lock, before the commit)."""
+    db, count = bundle._db, [0]
+    inner = db.txn
+
+    @contextlib.contextmanager
+    def txn():
+        with inner() as conn:
+            yield conn
+            count[0] += 1
+    db.txn = txn
+    return count
+
+
+def phase_durable_rebuild(torch, np, S, P, unpack, RC, p8, tmp):
+    """Phase 15 (a): the rebuild path over the sqlite store. ``p8`` is
+    phase 8's record and its cohort's cold results. Returns the FSM
+    launches of the counted window."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, CheckpointPolicy)
+    from cadence_tpu_torch.runtime.persistence.sqlite import (
+        create_sqlite_bundle)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        StateRebuilder)
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    t_phase = time.perf_counter()
+    path = os.path.join(tmp, "durable.db")
+    bundle = create_sqlite_bundle(path)
+    commits = counted_commits(bundle)
+    try:
+        t0 = time.perf_counter()
+        c = warm_cohort(bundle.history, DURABLE_N)
+        setup_s = time.perf_counter() - t0
+        prefix_commits = commits[0]
+        reqs, store = c["reqs"], bundle.checkpoint
+
+        # the main path, launches counted from zero
+        RC.replay_rows.launches = 0
+        t0 = time.perf_counter()
+        StateRebuilder(bundle.history, lane_len=REBUILD_LANE_LEN,
+                       checkpoints=CheckpointManager(
+                           store, CheckpointPolicy(every_events=1,
+                                                   keep_last=1))
+                       ).rebuild_many(reqs)
+        prefix_pass_s = time.perf_counter() - t0
+        checkpoints_written = store.count_checkpoints()
+        n0, t0 = commits[0], time.perf_counter()
+        append_tails(c)
+        tail_s, tail_commits = time.perf_counter() - t0, commits[0] - n0
+        cold_scope, warm_scope = Scope(), Scope()
+        cold_s, cold_out = timed_passes(
+            StateRebuilder(bundle.history, lane_len=REBUILD_LANE_LEN,
+                           metrics=cold_scope), reqs, WARM_ITERS)
+        warm_s, warm_out = timed_passes(
+            StateRebuilder(bundle.history, lane_len=REBUILD_LANE_LEN,
+                           metrics=warm_scope,
+                           checkpoints=CheckpointManager(
+                               store, CheckpointPolicy(every_events=1 << 30,
+                                                       keep_last=1))),
+            reqs, WARM_ITERS)
+        launches = RC.replay_rows.launches
+
+        # the host replay over the same store, outside the counted window
+        t0 = time.perf_counter()
+        host = StateRebuilder(bundle.history)
+        oracle = [rebuild_key(unpack, host.rebuild(r)) for r in reqs]
+        oracle_s = time.perf_counter() - t0
+        mism = {name: sum(rebuild_key(unpack, g) != w
+                          for g, w in zip(out, oracle))
+                for name, out in (("cold", cold_out), ("warm", warm_out))}
+        # against phase 8's memory-store results: the branch tokens
+        # differ (a store mints its own branch ids), all else equal
+        for name, out in (("cold", cold_out), ("warm", warm_out)):
+            mism[f"{name}_vs_phase8"] = sum(
+                rebuild_key(unpack, g)[:3] != k[:3]
+                for g, k in zip(out, p8["cold_keys"][:DURABLE_N]))
+        mism["branch_tokens"] = sum(
+            g[0].execution_info.branch_token != r.branch_token
+            and g[0].execution_info.branch_token != r.branch_token.decode()
+            for g, r in zip(cold_out, reqs))
+        passes = WARM_ITERS + 1
+        reg = warm_scope.registry
+        hits = reg.counter_value("checkpoint_hit")
+        lookups = hits + reg.counter_value("checkpoint_miss") + \
+            reg.counter_value("checkpoint_invalidated")
+        saved = reg.counter_value("events_replayed_saved") // passes
+        suffix_frac = 1.0 - saved / c["total_events"]
+        configured = c["suffix_events"] / c["total_events"]
+        fallbacks = {name: sc.registry.counter_value("host_fallbacks")
+                     for name, sc in (("cold", cold_scope),
+                                      ("warm", warm_scope))}
+        kernel = time_rebuild_kernel(torch, np, S, P, RC, c)
+        file_bytes = sum(os.path.getsize(path + ext)
+                         for ext in ("", "-wal") if os.path.exists(path + ext))
+    finally:
+        bundle.close()
+    rec = {
+        "phase": "worker_store", "part": "durable_rebuild",
+        "histories": DURABLE_N, "depth": WARM_DEPTH,
+        "mean_depth": c["total_events"] / DURABLE_N,
+        "store": "sqlite (WAL, busy_timeout 5000, BEGIN IMMEDIATE)",
+        "setup_s": setup_s, "write_s": c["write_s"],
+        "prefix_batches": c["prefix_batches"],
+        "prefix_commits": prefix_commits,
+        "commits_per_s": prefix_commits / c["write_s"],
+        "tail_commits": tail_commits, "tail_s": tail_s,
+        "file_bytes": file_bytes, "prefix_pass_s": prefix_pass_s,
+        "checkpoints_written": checkpoints_written,
+        "cold_histories_per_s": DURABLE_N / cold_s,
+        "warm_histories_per_s": DURABLE_N / warm_s,
+        "cold_batch_s": cold_s, "warm_batch_s": warm_s,
+        "checkpoint_hit_rate": hits / max(lookups, 1),
+        "suffix_frac": suffix_frac, "suffix_frac_configured": configured,
+        "host_fallbacks": fallbacks,
+        "wall_split_cold": wall_split(cold_scope, passes),
+        "wall_split_warm": wall_split(warm_scope, passes),
+        "phase8_memory_wall_split_cold":
+            p8["rec"]["rebuild_warm"]["wall_split_cold"],
+        "phase8_memory_wall_split_warm":
+            p8["rec"]["rebuild_warm"]["wall_split_warm"],
+        # a run's read, each store's cohort its own size
+        "history_read_ms_per_run": {
+            "sqlite_cold": wall_split(cold_scope, passes)["history_read_s"]
+            / DURABLE_N * 1e3,
+            "memory_cold_phase8": p8["rec"]["rebuild_warm"][
+                "wall_split_cold"]["history_read_s"] / WARM_N * 1e3},
+        "phase8_memory_cold_batch_s":
+            p8["rec"]["rebuild_warm"]["cold_batch_s"],
+        "phase8_memory_warm_batch_s":
+            p8["rec"]["rebuild_warm"]["warm_batch_s"],
+        "host_oracle_s": oracle_s, "fsm_launches": launches,
+        "kernel": kernel, "mismatches": mism,
+        "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    check(not any(mism.values()), f"durable rebuilds differ: {mism}")
+    check(checkpoints_written == DURABLE_N,
+          f"the prefix pass wrote {checkpoints_written} checkpoints")
+    check(prefix_commits == c["prefix_batches"] + DURABLE_N,
+          f"{prefix_commits} commits for {c['prefix_batches']} batches "
+          f"and {DURABLE_N} branches")
+    check(fallbacks["cold"] == fallbacks["warm"] == 0,
+          f"the durable rebuild took the host route: {fallbacks}")
+    check(hits == lookups == DURABLE_N * passes,
+          f"warm checkpoint hits {hits} of {lookups} lookups")
+    check(abs(suffix_frac - configured) <= 0.02,
+          f"measured suffix_frac {suffix_frac} against {configured}")
+    check(launches > 0, "the durable rebuild launched no FSM kernel")
+    return launches
+
+
+class VisibilityTee:
+    """A visibility store whose writes also go to a bus topic (the
+    indexer's producer side, ``BusVisibilityClient``), as a history host
+    that writes visibility through Kafka does; reads stay on the store."""
+
+    def __init__(self, store, producer):
+        self._store, self._producer = store, producer
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def record_workflow_execution_started(self, rec):
+        self._store.record_workflow_execution_started(rec)
+        self._producer.record_workflow_execution_started(rec)
+
+    def record_workflow_execution_closed(self, rec):
+        self._store.record_workflow_execution_closed(rec)
+        self._producer.record_workflow_execution_closed(rec)
+
+    def upsert_workflow_execution(self, rec):
+        self._store.upsert_workflow_execution(rec)
+        self._producer.upsert_workflow_execution(rec)
+
+    def delete_workflow_execution(self, domain_id, workflow_id, run_id):
+        self._store.delete_workflow_execution(domain_id, workflow_id, run_id)
+        self._producer.delete_workflow_execution(domain_id, workflow_id,
+                                                 run_id)
+
+
+def ws_echo(ctx, input):
+    """A workflow that runs one activity and completes with its result."""
+    out = yield ctx.schedule_activity("ws-work", input)
+    return out
+
+
+def ws_sink(ctx, input):
+    """A workflow that stays open, taking "ping" signals."""
+    while True:
+        yield ctx.wait_signal("ping")
+
+
+def ws_wait(what, done, timeout_s=WS_WAIT_S, every_s=0.1):
+    """Poll ``done()`` until it returns a true value; returns (it, s)."""
+    t0 = time.perf_counter()
+    while True:
+        out = done()
+        if out:
+            return out, time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout_s,
+              f"{what} not done after {timeout_s} s")
+        time.sleep(every_s)
+
+
+def ws_history(box, wf, run):
+    """A run's history through the frontend, every page."""
+    events, token = box.frontend.get_workflow_execution_history(
+        WS_DOMAIN, wf, run)
+    while token:
+        more, token = box.frontend.get_workflow_execution_history(
+            WS_DOMAIN, wf, run, next_token=token)
+        events = events + more
+    return [e.to_dict() for e in events]
+
+
+def ws_parents(box, runs):
+    """Drive the parents' decisions on their own task list, as a
+    scripted poller: the first starts its children (policy TERMINATE
+    for the first ``WS_PARENTS - WS_OFFLOADED``, ABANDON for the rest),
+    a later one completes the parent once every child has started.
+    Returns each parent's child workflow ids."""
+    from cadence_tpu_torch.core.enums import (
+        DecisionType, EventType, ParentClosePolicy)
+    from cadence_tpu_torch.runtime.api import Decision
+
+    children = {wf: [f"{wf}-child-{k}" for k in range(WS_CHILDREN)]
+                for wf in runs}
+    closed, t0 = set(), time.perf_counter()
+    while len(closed) < len(runs):
+        check(time.perf_counter() - t0 < WS_WAIT_S,
+              f"{len(runs) - len(closed)} parents still open")
+        task = box.frontend.poll_for_decision_task(
+            WS_DOMAIN, WS_PARENT_TASK_LIST, identity="ws-parents",
+            timeout_s=1.0)
+        if task is None:
+            continue
+        types = [e.event_type for e in task.history]
+        wf = task.workflow_id
+        decisions = []
+        if EventType.StartChildWorkflowExecutionInitiated not in types:
+            policy = (ParentClosePolicy.Terminate
+                      if int(wf.rsplit("-", 1)[1]) < WS_PARENTS - WS_OFFLOADED
+                      else ParentClosePolicy.Abandon)
+            decisions = [Decision(
+                DecisionType.StartChildWorkflowExecution,
+                {"workflow_id": cid, "workflow_type": "ws-sink",
+                 "task_list": WS_TASK_LIST, "input": b"",
+                 "execution_start_to_close_timeout_seconds": 36000,
+                 "task_start_to_close_timeout_seconds": 600,
+                 "parent_close_policy": int(policy)})
+                for cid in children[wf]]
+        elif types.count(EventType.ChildWorkflowExecutionStarted) \
+                == WS_CHILDREN:
+            decisions = [Decision(DecisionType.CompleteWorkflowExecution,
+                                  {"result": b"parent done"})]
+            closed.add(wf)
+        box.frontend.respond_decision_task_completed(task.task_token,
+                                                     decisions)
+    return children
+
+
+def ws_closed(box, wf, run=""):
+    return not box.frontend.describe_workflow_execution(
+        WS_DOMAIN, wf, run).is_running
+
+
+def phase_worker_services(torch, np, S, RC, smi, tmp, device="cuda"):
+    """Phase 15 (b): the worker services on the Onebox twin over sqlite.
+    Returns FSM launches by route."""
+    from cadence_tpu_torch.archival import ArchiverProvider, URI
+    from cadence_tpu_torch.core.enums import CloseStatus
+    from cadence_tpu_torch.frontend.domain_handler import ArchivalStatus
+    from cadence_tpu_torch.messaging import MessageBus
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.runtime.persistence.errors import (
+        EntityNotExistsError)
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        MemoryVisibilityManager)
+    from cadence_tpu_torch.runtime.persistence.records import BranchToken
+    from cadence_tpu_torch.runtime.persistence.sqlite import (
+        create_sqlite_bundle)
+    from cadence_tpu_torch.runtime.queues.retention import (
+        delete_workflow_retention)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest, StateRebuilder)
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.visibility import AdvancedVisibilityStore
+    from cadence_tpu_torch.worker import Worker
+    from cadence_tpu_torch.worker.batcher import (
+        BATCHER_TASK_LIST, BATCHER_WORKFLOW_TYPE)
+    from cadence_tpu_torch.worker.indexer import BusVisibilityClient, Indexer
+    from cadence_tpu_torch.worker.parent_close_policy import (
+        ParentClosePolicyClient)
+    from cadence_tpu_torch.worker.service import SYSTEM_DOMAIN
+
+    t_phase = time.perf_counter()
+    routes = FrontendRoutes(RC, prefix="worker")
+    path = os.path.join(tmp, "worker.db")
+    bundle = create_sqlite_bundle(path)
+    commits = counted_commits(bundle)
+    vbus = MessageBus()
+    bundle.visibility = VisibilityTee(bundle.visibility,
+                                      BusVisibilityClient(vbus))
+    indexed = AdvancedVisibilityStore(MemoryVisibilityManager())
+    indexer = Indexer(vbus, indexed)
+    indexer.start()
+    box = Onebox(num_shards=WS_SHARDS, persistence=bundle, checkpoints=True,
+                 serving=True, device=device)
+    routes.wrap(box.serving)
+    box.start()
+    workers, stopped = [], False
+    t_wall = {}
+    try:
+        check(box.worker is not None and len(box.worker.workers) == 4,
+              "the Onebox twin started no worker service")
+        hist_uri = f"file://{tmp}/archive-history"
+        vis_uri = f"file://{tmp}/archive-visibility"
+        box.frontend.register_domain(
+            WS_DOMAIN, retention_days=1,
+            history_archival_status=ArchivalStatus.ENABLED,
+            history_archival_uri=hist_uri,
+            visibility_archival_status=ArchivalStatus.ENABLED,
+            visibility_archival_uri=vis_uri)
+        domain_id = box.domains.get_by_name(WS_DOMAIN).info.id
+        for k in range(WS_WORKERS):
+            w = Worker(box.frontend, WS_DOMAIN, WS_TASK_LIST,
+                       identity=f"ws-worker-{k}")
+            w.register_workflow("ws-echo", ws_echo)
+            w.register_workflow("ws-sink", ws_sink)
+            w.register_workflow("ws-batch-target", ws_sink)
+            w.register_activity("ws-work", lambda b: b"done:" + b)
+            workers.append(w)
+            w.start()
+
+        def start(wf, wtype, task_list=WS_TASK_LIST):
+            return box.frontend.start_workflow_execution(StartWorkflowRequest(
+                domain=WS_DOMAIN, workflow_id=wf, workflow_type=wtype,
+                task_list=task_list, input=wf.encode(),
+                request_id=f"ws-start-{wf}",
+                execution_start_to_close_timeout_seconds=36000,
+                task_start_to_close_timeout_seconds=600))
+
+        # 1. workflows run to completion; each close is archived
+        t0 = time.perf_counter()
+        echo = {f"ws-echo-{i:05d}": None for i in range(WS_COMPLETED)}
+        for wf in echo:
+            echo[wf] = start(wf, "ws-echo")
+        _, settle_s = ws_wait("the completed workflows", lambda: all(
+            ws_closed(box, wf, run) for wf, run in echo.items()), every_s=0.5)
+        t_wall["completed_s"] = time.perf_counter() - t0
+
+        # 2. parents of children under a parent-close policy
+        t0 = time.perf_counter()
+        parents = {f"ws-parent-{i:03d}": None for i in range(WS_PARENTS)}
+        for wf in parents:
+            parents[wf] = start(wf, "ws-parent", WS_PARENT_TASK_LIST)
+        children = ws_parents(box, parents)
+        offloaded = list(parents)[WS_PARENTS - WS_OFFLOADED:]
+        pcp = ParentClosePolicyClient(box.frontend)
+        child_runs = {}
+        for wf in parents:
+            for cid in children[wf]:
+                child_runs[cid] = box.frontend.describe_workflow_execution(
+                    WS_DOMAIN, cid).run_id
+        for wf in offloaded:
+            pcp.send([{"domain": WS_DOMAIN, "workflow_id": cid,
+                       "run_id": child_runs[cid], "policy": "terminate"}
+                      for cid in children[wf]])
+        ws_wait("the children's parent-close policy", lambda: all(
+            ws_closed(box, cid, run) for cid, run in child_runs.items()),
+            every_s=0.2)
+        t_wall["parent_close_s"] = time.perf_counter() - t0
+        child_status = [box.frontend.describe_workflow_execution(
+            WS_DOMAIN, cid, run).close_status
+            for cid, run in child_runs.items()]
+
+        # 3. open workflows: two rounds of serving reads (a signal
+        # between), then one batch workflow terminates them
+        targets = {f"ws-open-{i:04d}": None for i in range(WS_BATCH)}
+        for wf in targets:
+            targets[wf] = start(wf, "ws-batch-target")
+        box.history.drain_queues()
+        reads, read_ms = [], []
+        for rnd in range(2):
+            for wf, run in targets.items():
+                t1 = time.perf_counter()
+                got = box.history.serving_read(domain_id, wf, run)
+                read_ms.append((time.perf_counter() - t1) * 1e3)
+                check(got is not None, f"serving_read of {wf} is None")
+                reads.append((wf, got))
+                if rnd == 0:
+                    box.frontend.signal_workflow_execution(SignalRequest(
+                        domain=WS_DOMAIN, workflow_id=wf,
+                        signal_name="ping", input=b"1",
+                        request_id=f"ws-ping-{wf}"))
+        rb = StateRebuilder(box.persistence.history, device="cpu")
+        read_mism = []
+        for wf, got in reads:
+            tip = got.snapshot["exec"]["next_event_id"]
+            token = box.persistence.execution.get_workflow_execution(
+                box.history.controller.shard_for(wf), domain_id, wf,
+                targets[wf]).snapshot["execution_info"]["branch_token"]
+            ms, _, _ = rb.rebuild(RebuildRequest(
+                domain_id, wf, targets[wf], token, next_event_id=tip))
+            if got.snapshot != mutable_state_to_snapshot(ms):
+                read_mism.append(wf)
+        box.history.drain_queues()
+        open_before = {
+            wf for wf in list(targets) + list(child_runs)
+            if not ws_closed(box, wf)}
+        t0 = time.perf_counter()
+        batch_run = box.frontend.start_workflow_execution(
+            StartWorkflowRequest(
+                domain=SYSTEM_DOMAIN, workflow_id="ws-batch-1",
+                workflow_type=BATCHER_WORKFLOW_TYPE,
+                task_list=BATCHER_TASK_LIST, input=json.dumps({
+                    "operation": "terminate", "domain": WS_DOMAIN,
+                    "query": "WorkflowType = 'ws-batch-target' "
+                             "AND CloseTime = 0",
+                    "params": {"reason": "phase 15 batch"}}).encode(),
+                execution_start_to_close_timeout_seconds=3600))
+        ws_wait("the batch workflow", lambda: not (
+            box.frontend.describe_workflow_execution(
+                SYSTEM_DOMAIN, "ws-batch-1", batch_run).is_running),
+            every_s=0.05)
+        t_wall["batch_s"] = time.perf_counter() - t0
+        last = box.frontend.get_workflow_execution_history(
+            SYSTEM_DOMAIN, "ws-batch-1", batch_run)[0][-1]
+        batch_summary = json.loads(last.attributes.get("result", b"{}"))
+        batch_closed = {wf for wf in targets
+                        if box.frontend.describe_workflow_execution(
+                            WS_DOMAIN, wf).close_status
+                        == CloseStatus.Terminated}
+
+        # 4. every closed run archived; histories read before retention
+        closed = {**echo, **parents, **child_runs, **targets}
+        arch = ArchiverProvider.default()
+        harch = arch.get_history_archiver("file")
+        huri = URI.parse(hist_uri)
+
+        def archived(wf, run):
+            try:
+                return harch.get(huri, domain_id, wf, run)[0]
+            except FileNotFoundError:
+                return None
+
+        t0 = time.perf_counter()
+        ws_wait("archival of every closed run", lambda: all(
+            os.path.exists(harch._path(huri, domain_id, wf, run))
+            for wf, run in closed.items()), every_s=0.5)
+        t_wall["archive_wait_s"] = time.perf_counter() - t0
+        box.history.drain_queues()
+        before = {wf: ws_history(box, wf, run) for wf, run in closed.items()}
+        close_to_archived = [
+            (os.stat(harch._path(huri, domain_id, wf, run)).st_mtime_ns
+             - before[wf][-1]["timestamp"]) / 1e6
+            for wf, run in closed.items()]
+        arch_mism = [wf for wf, run in closed.items()
+                     if [e.to_dict() for b in archived(wf, run) for e in b]
+                     != before[wf]]
+        varch = arch.get_visibility_archiver("file")
+        vrecs, token = varch.query(URI.parse(vis_uri), domain_id, "")
+        while token:
+            more, token = varch.query(URI.parse(vis_uri), domain_id, "",
+                                      next_token=token)
+            vrecs = vrecs + more
+        vis_archived = {(r.workflow_id, r.run_id) for r in vrecs}
+
+        # 5. the indexer's store against the primary's, then retention
+        box.history.drain_queues()
+
+        def vis_counts(vis):
+            return {"all": vis.count_workflow_executions(domain_id),
+                    "open": vis.count_workflow_executions(domain_id,
+                                                          open_only=True)}
+
+        counts = {"store": vis_counts(box.visibility)}
+        counts["indexer"], t_wall["indexer_wait_s"] = ws_wait(
+            "the indexer", lambda: vis_counts(indexed) == counts["store"]
+            and counts["store"], 60.0, 0.05)
+        t0 = time.perf_counter()
+        for wf, run in closed.items():
+            sid = box.history.controller.shard_for(wf)
+            engine = box.history.controller.get_engine_for_shard(sid)
+            delete_workflow_retention(
+                engine.shard, engine,
+                types.SimpleNamespace(domain_id=domain_id, workflow_id=wf,
+                                      run_id=run))
+        t_wall["retention_s"] = time.perf_counter() - t0
+        still = []
+        for wf, run in closed.items():
+            try:
+                box.persistence.execution.get_workflow_execution(
+                    box.history.controller.shard_for(wf), domain_id, wf,
+                    run)
+                still.append(wf)
+            except EntityNotExistsError:
+                pass
+        t0 = time.perf_counter()
+        after_mism = [wf for wf, run in closed.items()
+                      if ws_history(box, wf, run) != before[wf]]
+        t_wall["archived_reads_s"] = time.perf_counter() - t0
+        counts["store_after"] = vis_counts(box.visibility)
+        counts["indexer_after"], _ = ws_wait(
+            "the indexer's deletes", lambda: vis_counts(indexed)
+            == counts["store_after"] and counts["store_after"], 60.0, 0.05)
+
+        # 6. orphan trees and two passes of the history scavenger
+        from cadence_tpu_torch.core import history_factory as F
+
+        # two passes first: the trees that starts which collided with a
+        # concurrent start left behind (the branch is written before the
+        # execution record) go, and the scavenger's memory is settled
+        scanner = box.worker.workers[1].activities._activities
+        settle = [json.loads(scanner["scavenge_history"](b""))
+                  for _ in range(2)]
+        h = box.persistence.history
+        live_trees = {t for t, _ in h.list_history_trees()}
+        orphans = set()
+        for i in range(WS_ORPHANS):
+            br = h.new_history_branch(tree_id=f"ws-orphan-{i:03d}")
+            h.append_history_nodes(br, [F.workflow_execution_started(
+                1, 0, 0, task_list="x", workflow_type="t")],
+                transaction_id=1)
+            orphans.add(br.tree_id)
+        passes = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = json.loads(scanner["scavenge_history"](b""))
+            passes.append(dict(out, wall_s=time.perf_counter() - t1))
+        trees_after = {t for t, _ in h.list_history_trees()}
+        # every execution left (the system domain's) keeps its history
+        unreadable = []
+        for sid in box.history.controller.shard_ids():
+            for dom, wf, run in box.persistence.execution \
+                    .list_concrete_executions(sid):
+                snap = box.persistence.execution.get_workflow_execution(
+                    sid, dom, wf, run).snapshot
+                token = snap["execution_info"]["branch_token"]
+                branch = BranchToken.from_json(
+                    token.decode() if isinstance(token, bytes) else token)
+                if not h.read_history_branch(branch, 1, 1 << 60)[0]:
+                    unreadable.append(wf)
+
+        # the phase's rates, before the drain
+        t_wall["before_stop_s"] = time.perf_counter() - t_phase
+        commits_total = commits[0]
+        for w in workers:
+            w.stop()
+        t0 = time.perf_counter()
+        box.stop()
+        stopped = True
+        t_wall["stop_s"] = time.perf_counter() - t0
+    finally:
+        for w in workers:
+            w.stop()
+        if not stopped:
+            box.stop()
+        indexer.stop()
+        bundle.close()
+    lost_live = live_trees - trees_after
+    left_orphans = orphans & trees_after
+    status_counts = {}
+    for st in child_status:
+        status_counts[int(st)] = status_counts.get(int(st), 0) + 1
+    rec = {
+        "phase": "worker_store", "part": "worker_services",
+        "shards": WS_SHARDS, "workers": WS_WORKERS,
+        "completed": WS_COMPLETED, "parents": WS_PARENTS,
+        "children": len(child_runs), "offloaded_parents": WS_OFFLOADED,
+        "batch_targets": WS_BATCH, "orphans": WS_ORPHANS,
+        "closed_runs": len(closed), "settle_s": settle_s,
+        "walls_s": t_wall,
+        "close_to_archived_ms": percentiles(np, close_to_archived),
+        "serving_read_ms": percentiles(np, read_ms),
+        "batch_summary": batch_summary,
+        "batch_terminated": len(batch_closed),
+        "scavenger_settle_passes": settle, "scavenger_passes": passes,
+        "commits": commits_total,
+        "commits_per_s": commits_total / t_wall["before_stop_s"],
+        "visibility_counts": counts,
+        "visibility_archived": len(vis_archived),
+        "children_close_status": status_counts,
+        "launches_by_route": dict(routes.counts),
+        "mismatches": {
+            "archived_history": len(arch_mism),
+            "archived_reads": len(after_mism),
+            "serving_reads": len(read_mism),
+            "executions_left": len(still)},
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(rec)
+    check(not arch_mism, f"{len(arch_mism)} archived histories differ, "
+          f"first {arch_mism[:3]}")
+    check(not after_mism and not still,
+          f"after retention {len(after_mism)} reads differ from the "
+          f"archive and {len(still)} executions are left")
+    check(not read_mism, f"{len(read_mism)} serving reads differ from the "
+          f"host replay, first {read_mism[:3]}")
+    check(vis_archived == set(closed.items()),
+          f"{len(set(closed.items()) - vis_archived)} visibility records "
+          "missing from the archive")
+    check(status_counts == {int(CloseStatus.Terminated): len(child_runs)},
+          f"children's close statuses {status_counts}")
+    check(batch_summary.get("done") == WS_BATCH
+          and batch_summary.get("failed") == 0
+          and batch_closed == set(targets)
+          and open_before == set(targets),
+          f"the batch terminated {batch_summary} of {WS_BATCH}")
+    check(passes[0]["deleted"] == 0 and passes[1]["deleted"] == WS_ORPHANS
+          and not left_orphans and not lost_live and not unreadable,
+          f"the scavenger's passes {passes}, {len(left_orphans)} orphans "
+          f"left, {len(lost_live)} other trees lost, {len(unreadable)} "
+          "executions without their history")
+    want_all = WS_COMPLETED + WS_PARENTS + len(child_runs) + WS_BATCH
+    check(counts["store"] == counts["indexer"]
+          == {"all": want_all, "open": 0}
+          and counts["store_after"] == counts["indexer_after"]
+          == {"all": 0, "open": 0},
+          f"visibility counts {counts}, want {want_all} closed then none")
+    for route, k in routes.counts.items():
+        check(k > 0, f"the worker phase made no {route} launch")
+    return dict(routes.counts)
+
+
+def phase_push_replication(smi, device="cuda"):
+    """Phase 15 (c): the push replicator between two Onebox twins."""
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.worker.replicator import (
+        ReplicationPublisher, replication_topic)
+    from cadence_tpu_torch.worker.service import WorkerService
+
+    t_phase = time.perf_counter()
+    active = Onebox(num_shards=PUSH_SHARDS, start_worker=False,
+                    cluster_metadata=repl_meta("active"),
+                    device=device).start()
+    standby = Onebox(num_shards=PUSH_SHARDS, start_worker=False,
+                     cluster_metadata=repl_meta("standby"),
+                     device=device).start()
+    service = WorkerService(
+        standby.frontend, standby.persistence, num_shards=PUSH_SHARDS,
+        bus=active.bus, domain_handler=standby.domain_handler,
+        history_service=standby.history, replication_sources=["active"])
+    service.start()
+    try:
+        # the global domain: registered, then updated, on the active
+        domain_id = active.domain_handler.register_domain(
+            PUSH_DOMAIN, is_global=True, clusters=["active", "standby"],
+            active_cluster="active")
+        active.domain_handler.update_domain(
+            PUSH_DOMAIN, description="push replication", retention_days=3)
+        want_dom = active.domain_handler.describe_domain(name=PUSH_DOMAIN)
+
+        def domain_applied():
+            try:
+                got = standby.domain_handler.describe_domain(
+                    name=PUSH_DOMAIN)
+            except Exception:
+                return False
+            return got.config == want_dom.config and \
+                got.info == want_dom.info
+        _, domain_s = ws_wait("the domain update on the standby",
+                              domain_applied, 60.0, 0.05)
+
+        t0 = time.perf_counter()
+        runs = {}
+        for i in range(PUSH_WORKFLOWS):
+            wf = f"push-{i:04d}"
+            runs[wf] = active.frontend.start_workflow_execution(
+                StartWorkflowRequest(
+                    domain=PUSH_DOMAIN, workflow_id=wf, workflow_type="t",
+                    task_list=PUSH_TASK_LIST, request_id=f"push-start-{i}",
+                    execution_start_to_close_timeout_seconds=36000,
+                    task_start_to_close_timeout_seconds=600))
+            for k in range(PUSH_SIGNALS):
+                active.frontend.signal_workflow_execution(SignalRequest(
+                    domain=PUSH_DOMAIN, workflow_id=wf, signal_name="s",
+                    input=b"%d" % k, request_id=f"push-sig-{i}-{k}"))
+        write_s = time.perf_counter() - t0
+        publisher = ReplicationPublisher(active.history, active.bus,
+                                         "active")
+        t0 = time.perf_counter()
+        published = 0
+        while True:
+            n = publisher.publish_once()
+            published += n
+            if not n:
+                break
+        publish_s = time.perf_counter() - t0
+        a = types.SimpleNamespace(svc=active.history, domain_id=domain_id,
+                                  domain=PUSH_DOMAIN)
+        b = types.SimpleNamespace(svc=standby.history, domain_id=domain_id,
+                                  domain=PUSH_DOMAIN)
+        tips = repl_tips(types.SimpleNamespace(
+            persistence=active.persistence, svc=active.history,
+            domain_id=domain_id), runs)
+
+        def applied():
+            got = repl_tips(types.SimpleNamespace(
+                persistence=standby.persistence, svc=standby.history,
+                domain_id=domain_id), runs)
+            return got == tips
+        _, apply_s = ws_wait("the standby's apply", applied, 300.0, 0.05)
+        apply_s += publish_s
+        states, hists = repl_mismatches(a, b, runs)
+        dlq = len(active.bus.dlq_messages(replication_topic("active")))
+    finally:
+        service.stop()
+        standby.stop()
+        active.stop()
+    rec = {"phase": "worker_store", "part": "push_replication",
+           "shards": PUSH_SHARDS, "workflows": PUSH_WORKFLOWS,
+           "signals_each": PUSH_SIGNALS, "published": published,
+           "write_s": write_s, "publish_s": publish_s,
+           "apply_s": apply_s, "apply_tasks_per_s": published / apply_s,
+           "domain_apply_s": domain_s, "dlq": dlq,
+           "mismatches": {"states": states, "histories": hists},
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(rec)
+    want = PUSH_WORKFLOWS * (1 + PUSH_SIGNALS)
+    check(published == want, f"published {published} tasks, want {want}")
+    check(not (states or hists or dlq),
+          f"push replication: {states} states and {hists} histories "
+          f"differ, {dlq} tasks in the DLQ")
+
+
+def phase_worker_store(torch, np, S, P, RC, unpack, smi, p8,
+                       device="cuda"):
+    """Phase 15: (a) the durable rebuild, (b) the worker services,
+    (c) the push replicator. Returns FSM launches by route."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws_") as tmp:
+        durable = phase_durable_rebuild(torch, np, S, P, unpack, RC, p8,
+                                        tmp)
+        launches = {"durable_rebuild": durable}
+        launches.update(phase_worker_services(torch, np, S, RC, smi, tmp,
+                                              device=device))
+        phase_push_replication(smi, device=device)
+    emit({"phase": "worker_store", "part": "summary",
+          "phase_s": time.perf_counter() - t0, "launches_by_route": launches,
+          "nvidia_smi": smi})
+    return launches
 
 
 def main() -> int:
@@ -4575,6 +5412,8 @@ def main() -> int:
     # then the kernel at the path's batch, outside the counted window
     rebuild, launches_rebuild, cohort = phase_rebuild(torch, np, unpack, RC)
     rebuild_kernel = time_rebuild_kernel(torch, np, S, P, RC, cohort)
+    # phase 15 holds its durable rebuilds against phase 8's
+    p8 = {"rec": rebuild, "cold_keys": cohort["cold_keys"]}
     del cohort
     emit({"phase": "rebuild_kernel", "packed_route": rebuild_kernel,
           "nvidia_smi": smi})
@@ -4606,7 +5445,13 @@ def main() -> int:
     topology_launches, flush_kernel = phase_topology(
         torch, np, S, P, RC, smi)
 
-    # 15. kernels and device
+    # 15. the worker services and the durable store, launches counted by
+    # route inside the phase
+    worker_launches = phase_worker_store(torch, np, S, P, RC, unpack, smi,
+                                         p8)
+    del p8
+
+    # 16. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -4622,7 +5467,8 @@ def main() -> int:
         + sum(service_launches.values())
         + sum(frontend_launches.values())
         + sum(replication_launches.values())
-        + sum(topology_launches.values()),
+        + sum(topology_launches.values())
+        + sum(worker_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -4662,7 +5508,8 @@ def main() -> int:
                               "rebuild_many": launches_rebuild,
                               **serve_launches, **parallel_launches,
                               **service_launches, **frontend_launches,
-                              **replication_launches, **topology_launches},
+                              **replication_launches, **topology_launches,
+                              **worker_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

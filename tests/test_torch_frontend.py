@@ -138,9 +138,8 @@ class _Side:
         self.box = M.Onebox(
             num_shards=4, persistence=persistence,
             cluster_metadata=_cluster_metadata(M), time_source=self.clock,
-            serving=engine,
-            **({"start_worker": False} if M.pkg == "cadence_tpu"
-               else {"device": "cpu"})).start()
+            serving=engine, start_worker=False,
+            **({} if M.pkg == "cadence_tpu" else {"device": "cpu"})).start()
         self.fe = self.box.frontend
         reg = M.sdk.WorkflowRegistry()
         for name, fn in _workflows(M.sdk).items():
@@ -562,7 +561,8 @@ def test_serving_reads_match_host_replay(both):
 
 def test_port_admin_refuses_unported_planes():
     """The Onebox twin refuses only the planes the port has not yet
-    (the worker service, fault injection, the sanitizer); the reshard
+    (fault injection, the sanitizer) and starts and stops its worker
+    service by default, as the reference's does; the reshard
     verbs, the admin queue view and the autopilot verbs answer as the
     reference's do on the same calls, timings left out."""
     from cadence_tpu.testing.onebox import Onebox as JaxOnebox
@@ -596,7 +596,8 @@ def test_port_admin_refuses_unported_planes():
 
     got = {}
     for key, box in (("jax", JaxOnebox(num_shards=2, start_worker=False)),
-                     ("port", Onebox(num_shards=2, device="cpu"))):
+                     ("port", Onebox(num_shards=2, start_worker=False,
+                                     device="cpu"))):
         box.start()
         try:
             got[key] = script(box)
@@ -617,10 +618,18 @@ def test_port_admin_refuses_unported_planes():
         box.stop()
     with pytest.raises(BadRequestError):
         Onebox(num_shards=1, device="cpu").admin.autopilot_status()
-    for kw in ({"start_worker": True}, {"faults": object()},
-               {"sanitize": True}):
+    for kw in ({"faults": object()}, {"sanitize": True}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Onebox(device="cpu", **kw)
+    # the worker service is ported: the default box starts and stops it
+    box = Onebox(device="cpu").start()
+    try:
+        assert box.worker is not None and len(box.worker.workers) == 4
+        assert box.frontend.describe_domain(name="cadence-system")
+    finally:
+        box.stop()
+    assert not any(p._thread.is_alive() for w in box.worker.workers
+                   for p in (w.decisions, w.activities))
 
 
 def _demo(module, *flags):

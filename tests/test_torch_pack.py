@@ -207,8 +207,10 @@ def test_import_hygiene():
     replication planes, the standby queues, the wire codec, the link
     simulator, the parallel queue executor, resharding, the capacity
     autopilot, the conflict-matrix artifact, the trimmed config, the
-    topology cells and the onebox and serving-demo twins included, loads
-    neither jax nor the reference package."""
+    topology cells, the worker services and their daemons, the sqlite
+    store, its schema and checkpoint store, the environment module and
+    the onebox and serving-demo twins included, loads neither jax nor
+    the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -239,6 +241,17 @@ def test_import_hygiene():
         "import cadence_tpu_torch.analysis.artifact\n"
         "import cadence_tpu_torch.config.static\n"
         "import cadence_tpu_torch.testing.topology_cells\n"
+        "import cadence_tpu_torch.worker.service\n"
+        "import cadence_tpu_torch.worker.archiver\n"
+        "import cadence_tpu_torch.worker.scanner\n"
+        "import cadence_tpu_torch.worker.batcher\n"
+        "import cadence_tpu_torch.worker.parent_close_policy\n"
+        "import cadence_tpu_torch.worker.indexer\n"
+        "import cadence_tpu_torch.worker.replicator\n"
+        "import cadence_tpu_torch.runtime.persistence.sqlite\n"
+        "import cadence_tpu_torch.runtime.persistence.schema\n"
+        "import cadence_tpu_torch.testing.environment\n"
+        "from cadence_tpu_torch.checkpoint import SqliteCheckpointStore\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"

@@ -81,7 +81,7 @@ def _box(pkg):
     onebox = _mod(pkg, "testing.onebox")
     clock = _mod(pkg, "utils.clock").FakeTimeSource()
     kw = {"start_worker": False} if pkg == "cadence_tpu" else {
-        "device": "cpu"}
+        "start_worker": False, "device": "cpu"}
     box = onebox.Onebox(num_shards=2, checkpoints=True, time_source=clock,
                         **kw).start()
     box.domain_handler.register_domain("topo")

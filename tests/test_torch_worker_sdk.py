@@ -453,7 +453,8 @@ def _reference_sdk_cases():
 def _port_box():
     from cadence_tpu_torch.testing.onebox import Onebox
 
-    return Onebox(num_shards=2, device="cpu").start()
+    # the reference's FrontendBox runs no worker service
+    return Onebox(num_shards=2, start_worker=False, device="cpu").start()
 
 
 _CASES = _reference_sdk_cases()
