@@ -1,12 +1,25 @@
-"""The host-to-host wire codec.
+"""RPC layer: the host↔host plane.
 
-The encoding half of the reference package's ``rpc/`` codec (JSON with
-dataclass, bytes, enum and tuple envelopes). The replication transport
-sizes every transfer by it (``runtime/replication/transport.wire_size``).
-Decoding and the gRPC server and clients wait for the rpc slice of the
-port.
+Reference: common/rpc.go — YARPC dispatchers over TChannel. The
+reference package's equivalent is gRPC for the host plane (device to
+device traffic rides the collectives, never this layer). Uses gRPC
+generic handlers with a JSON+dataclass codec, so no IDL compilation step
+is needed.
+
+A copy of the reference package's ``rpc/``. The service names on the wire
+(``cadence_tpu.Frontend``, ``cadence_tpu.History``,
+``cadence_tpu.Matching``) are the reference's, so a client of either
+package calls a server of the other.
 """
 
-from .codec import encode
+from .codec import decode, encode
+from .server import FrontendRPCServer
+from .client import RemoteClusterRPCClient, RemoteFrontend
 
-__all__ = ["encode"]
+__all__ = [
+    "decode",
+    "encode",
+    "FrontendRPCServer",
+    "RemoteClusterRPCClient",
+    "RemoteFrontend",
+]

@@ -660,6 +660,11 @@ class HistoryEngine:
                     identity,
                 )
                 return
+            # events written past the decision's Started event while it
+            # was in flight (a cancel request is not buffered) never
+            # reached the worker's poll: they need a fresh decision
+            # (ROADMAP C.6)
+            unseen = ms.next_event_id > started_id + 1
             txn = self._txn(ctx, ms, version)
             had_buffered = txn.has_buffered_events()
             completed = txn.add_decision_task_completed(
@@ -704,6 +709,7 @@ class HistoryEngine:
             # a new decision to carry outstanding buffered queries)
             if not handler.workflow_closed and (
                 handler.unhandled_close_dropped
+                or unseen
                 or self._needs_new_decision(txn, completed.event_id)
                 or self.query_registry.buffered_count(
                     domain_id, workflow_id, run_id

@@ -1,14 +1,15 @@
-"""Persistence decorator clients: metrics.
+"""Persistence decorator clients: metrics + rate limiting.
 
 Reference: common/persistence/persistenceMetricClients.go (per-API
-latency/error counters around every manager). Decorators are generic:
+latency/error counters around every manager) and
+persistenceRateLimitedClients.go (token-bucket QPS guards returning
+ServiceBusyError when saturated). Decorators are generic:
 they wrap any manager object and intercept its public methods, so one
 implementation covers all five managers — the factory stacks them the
 same way the reference's persistence-factory does.
 
 A copy of the reference package's ``runtime/persistence/decorators.py``
-without the rate-limited client (no caller of the port sets a store
-rate) and the testing clients (fault injection, the effect witness, the
+without the testing clients (fault injection, the effect witness, the
 sanitizer's probe): ``wrap_bundle`` raises when one of those is asked
 for.
 """
@@ -16,9 +17,15 @@ for.
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, Optional
 
 from ...utils.metrics import NOOP, Scope
+from ...utils.quotas import TokenBucket
+
+
+class PersistenceBusyError(Exception):
+    """QPS limit hit (reference: ServiceBusyError from rate-limited
+    persistence clients)."""
 
 
 class _Wrapped:
@@ -81,10 +88,27 @@ class MetricsClient(_Wrapped):
         return out
 
 
+class RateLimitedClient(_Wrapped):
+    """Token-bucket QPS guard in front of a manager."""
+
+    def __init__(self, base: Any, max_qps: float = 2000.0,
+                 bucket: Optional[TokenBucket] = None) -> None:
+        super().__init__(base)
+        self._bucket = bucket or TokenBucket(max_qps)
+
+    def _invoke(self, name, method, args, kwargs):
+        if not self._bucket.allow():
+            raise PersistenceBusyError(
+                f"persistence QPS limit hit on {name}"
+            )
+        return method(*args, **kwargs)
+
+
 def wrap_bundle(bundle, metrics: Scope = NOOP,
+                max_qps: Optional[float] = None,
                 faults=None, effects=False, sanitize=False):
-    """Layer metrics over every manager in a PersistenceBundle,
-    mirroring persistence-factory/factory.go.
+    """Layer metrics (and optionally rate limits) over every manager in
+    a PersistenceBundle, mirroring persistence-factory/factory.go.
 
     ``faults``, ``effects`` and ``sanitize`` install the reference's
     testing clients (fault injection, the effect witness, the
@@ -105,7 +129,10 @@ def wrap_bundle(bundle, metrics: Scope = NOOP,
     def deco(mgr, name):
         if mgr is None:
             return None
-        return MetricsClient(mgr, metrics, manager=name)
+        out = MetricsClient(mgr, metrics, manager=name)
+        if max_qps is not None:
+            out = RateLimitedClient(out, max_qps)
+        return out
 
     return PersistenceBundle(
         shard=deco(bundle.shard, "shard"),

@@ -214,12 +214,7 @@ class Onebox:
                 history_service=self.history,
             )
             # archival trigger on every shard's close processor
-            client = ArchivalClient(self.frontend, self.domains)
-            for shard_id in self.history.controller.owned_shards():
-                handle = self.history.controller._handles[shard_id]
-                for p in handle.processors:
-                    if hasattr(p, "_process_close"):
-                        p.archival_client = client
+            ArchivalClient(self.frontend, self.domains).attach(self.history)
             self.worker.start()
         self._started = True
         return self

@@ -1,6 +1,7 @@
-"""Activity retry-policy interval math and the pump loops' backoff ladder.
+"""Retry-policy interval math, the pump loops' backoff ladder and the
+host-operation retry loop.
 
-A copy of three parts of the reference package's ``utils/backoff.py``:
+A copy of the reference package's ``utils/backoff.py``:
 the retry-policy validation the history host applies to a start request
 and to a ScheduleActivityTask decision, the interval math
 ``MutableState.retry_activity`` and the cron/retry continuation use
@@ -8,8 +9,9 @@ and to a ScheduleActivityTask decision, the interval math
 next attempt start, and does the error or the expiration stop retrying;
 Cadence service/history/retry.go, getBackoffInterval), and
 ``BackoffLadder``, the error backoff of the serving tick pump and the
-replication pump. The
-host-operation retry loop of that module is not needed here.
+replication pump, and the host-operation retry loop (``retry`` over an
+``ExponentialRetryPolicy``; Cadence common/backoff/retry.go) the routed
+service clients wrap every cross-host call in.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import random
-from typing import Optional, Sequence
+import time
+from typing import Callable, Optional, Sequence, TypeVar
 
 SECOND = 1_000_000_000
 
@@ -131,6 +134,30 @@ def next_backoff_interval_seconds(
     return interval
 
 
+@dataclasses.dataclass
+class ExponentialRetryPolicy:
+    """Host-operation retry schedule (common/backoff/retrypolicy.go)."""
+
+    initial_interval_s: float = 0.05
+    backoff_coefficient: float = 2.0
+    maximum_interval_s: float = 10.0
+    expiration_interval_s: float = 60.0    # 0 = none
+    maximum_attempts: int = 0              # 0 = unlimited
+    jitter: float = 0.2
+
+    def compute_next_delay(self, attempt: int, elapsed_s: float) -> float:
+        """Delay in seconds before attempt ``attempt`` (1-based), or < 0."""
+        if self.maximum_attempts and attempt >= self.maximum_attempts:
+            return -1.0
+        if self.expiration_interval_s and elapsed_s >= self.expiration_interval_s:
+            return -1.0
+        d = self.initial_interval_s * (self.backoff_coefficient ** (attempt - 1))
+        d = min(d, self.maximum_interval_s)
+        if self.jitter:
+            d *= 1 + random.uniform(-self.jitter, self.jitter)
+        return d
+
+
 class BackoffLadder:
     """Error-backoff ladder for pump loops (the replication pump and the
     serving tick pump).
@@ -182,3 +209,37 @@ class BackoffLadder:
     def success(self) -> None:
         """Reset: the next failure starts back at ``base_s``."""
         self._delay = self.base_s
+
+
+T = TypeVar("T")
+
+
+class NonRetriableError(Exception):
+    """Wrap an error to break out of Retry immediately."""
+
+
+def retry(
+    op: Callable[[], T],
+    policy: Optional[ExponentialRetryPolicy] = None,
+    is_retriable: Callable[[Exception], bool] = lambda e: True,
+    sleep: Callable[[float], None] = time.sleep,
+) -> T:
+    """Run ``op`` with exponential backoff until success/exhaustion."""
+    policy = policy or ExponentialRetryPolicy()
+    start = time.monotonic()
+    attempt = 0
+    while True:
+        attempt += 1
+        try:
+            return op()
+        except NonRetriableError as e:
+            raise (e.__cause__ or e)
+        except Exception as e:  # noqa: BLE001 — predicate decides
+            if not is_retriable(e):
+                raise
+            delay = policy.compute_next_delay(
+                attempt, time.monotonic() - start
+            )
+            if delay < 0:
+                raise
+            sleep(delay)

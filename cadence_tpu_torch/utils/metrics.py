@@ -10,9 +10,15 @@ bucket by powers of two from 1 µs; ``timer_stats`` returns
 interpolation inside the winning bucket, clamped to the observed max);
 ``snapshot()`` is the registry's debug dump, which the replication tests
 read. ``Window`` / ``WindowReading`` give interval deltas over a
-registry (the capacity autopilot's sense step reads them). The series
-cap and the device metrics plane of the reference module are not
-ported.
+registry (the capacity autopilot's sense step reads them).
+
+Cardinality is bounded: a Registry admits at most ``max_series``
+distinct (name, tags) series per kind; past the cap, new series
+collapse into an ``overflow="true"`` sink series per metric name and
+``metrics_dropped_series`` counts the suppressed writes — a tag
+explosion (e.g. a runaway per-workflow tag) degrades percentile
+attribution, never process memory. The device metrics plane of the
+reference module is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +30,12 @@ from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Tuple
 
 TagTuple = Tuple[Tuple[str, str], ...]
+
+# where writes land once the series cap is hit (per metric name)
+OVERFLOW_TAGS: TagTuple = (("overflow", "true"),)
+DROPPED_SERIES = "metrics_dropped_series"
+
+_DEFAULT_MAX_SERIES = 8192
 
 # bucket i holds values in (2^(i-1), 2^i] µs; bucket 0 holds <= 1 µs
 _BUCKET0_S = 1e-6
@@ -133,28 +145,51 @@ class TimerStats(tuple):
 
 
 class Registry:
-    """Thread-safe store of counters and timers."""
+    """Thread-safe store of counters and timers, cardinality-capped."""
 
-    def __init__(self) -> None:
+    def __init__(self, max_series: int = _DEFAULT_MAX_SERIES) -> None:
         self._lock = threading.Lock()
+        self._max_series = max(int(max_series), 1)
+        self._series = 0
         self._counters: Dict[Tuple[str, TagTuple], int] = defaultdict(int)
         self._timers: Dict[Tuple[str, TagTuple], Histogram] = {}
         self._gauges: Dict[Tuple[str, TagTuple], float] = {}
 
+    def _admit(self, table, name: str, tags: TagTuple):
+        """Series admission under the lock: an existing key passes; a
+        new key past the cap collapses into the per-name overflow sink
+        and bumps the dropped-writes counter."""
+        key = (name, tags)
+        if key in table:
+            return key
+        if self._series >= self._max_series and tags != OVERFLOW_TAGS:
+            self._counters[(DROPPED_SERIES, ())] += 1
+            # the sink series itself is admitted uncounted: names are
+            # code-bounded, tags are what explode
+            return (name, OVERFLOW_TAGS)
+        if tags != OVERFLOW_TAGS:
+            self._series += 1
+        return key
+
     def inc(self, name: str, tags: TagTuple, delta: int = 1) -> None:
         with self._lock:
-            self._counters[(name, tags)] += delta
+            self._counters[self._admit(self._counters, name, tags)] += delta
 
     def gauge(self, name: str, tags: TagTuple, value: float) -> None:
         with self._lock:
-            self._gauges[(name, tags)] = value
+            self._gauges[self._admit(self._gauges, name, tags)] = value
 
     def record(self, name: str, tags: TagTuple, seconds: float) -> None:
         with self._lock:
-            hist = self._timers.get((name, tags))
+            key = self._admit(self._timers, name, tags)
+            hist = self._timers.get(key)
             if hist is None:
-                hist = self._timers[(name, tags)] = Histogram()
+                hist = self._timers[key] = Histogram()
             hist.record(seconds)
+
+    def series_count(self) -> int:
+        with self._lock:
+            return self._series
 
     def counter_value(
         self, name: str, tags: Optional[Dict[str, str]] = None,

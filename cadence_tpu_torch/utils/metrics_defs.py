@@ -18,7 +18,8 @@ host runtime: the frontend, history and matching operation lists, the
 instrumentation, and the name catalogs of the planes ported so far:
 replication and failover (``REPLICATION_METRICS``, ``FAILOVER_METRICS``),
 the parallel queue executor (``PARQUEUE_METRICS``), resharding
-(``RESHARD_METRICS``) and the capacity autopilot (``AUTOPILOT_METRICS``).
+(``RESHARD_METRICS``), the capacity autopilot (``AUTOPILOT_METRICS``) and
+the tracing plane's self-telemetry (``TELEMETRY_METRICS``).
 The reference's other ``*_METRICS`` catalogs wait for their planes.
 """
 
@@ -235,6 +236,20 @@ AUTOPILOT_METRICS = (
     "autopilot_pauses",
     "autopilot_resumes",
     "autopilot_paused",
+)
+
+# tracing plane self-telemetry (utils/tracing.py + utils/metrics.py),
+# tagged (layer=telemetry): traces_sampled counts sampled roots,
+# spans_recorded/spans_dropped account the flight-recorder ring buffer
+# (dropped = evicted by capacity before export), and
+# metrics_dropped_series counts emissions the registry's max-series cap
+# collapsed into the overflow sink (a tag-cardinality explosion is
+# observable instead of an OOM).
+TELEMETRY_METRICS = (
+    "traces_sampled",
+    "spans_recorded",
+    "spans_dropped",
+    "metrics_dropped_series",
 )
 
 # the standard per-operation triple

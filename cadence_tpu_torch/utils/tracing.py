@@ -14,9 +14,11 @@ processing and replication apply run on pump threads; the engine binds
 by lookup).
 
 Completed spans land in a bounded in-process flight recorder (a ring
-buffer — old traces fall off, memory never grows), read back with
-``Tracer.spans()`` / ``traces()`` or as Chrome-trace-format JSON through
-``Tracer.chrome_trace()`` and the ``dump_traces`` admin verb.
+buffer — old traces fall off, memory never grows), dumpable as
+Chrome-trace-format JSON via ``GET /debug/pprof/traces``
+(utils/pprof.py), the ``dump_traces`` admin verb, or
+``Tracer.chrome_trace()`` directly — load the output in Perfetto /
+``chrome://tracing``.
 
 Cost discipline (the serving path must not pay for disabled
 telemetry): nothing here creates implicit root traces. A root exists
@@ -28,18 +30,13 @@ bootstrap). Every other entry point — ``span()``, ``annotate()``,
 shared no-op immediately when there is none: the unsampled path is one
 attribute lookup and a None check.
 
-A copy of the reference package's ``utils/tracing.py`` without what the
-port has no caller for yet: the wire form of a context and the gRPC
-metadata helpers (with the rpc layer), the JSON string form of the
-Chrome-trace export and the other module shortcuts (with the pprof
-endpoints, A.14). ``chrome_trace`` stays: the admin handler's
-``dump_traces`` returns it; so does ``annotate``, which the replication
-planes and the link simulator call.
+A copy of the reference package's ``utils/tracing.py``.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import random
 import threading
 import time
@@ -48,6 +45,9 @@ from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from .metrics import NOOP, Scope
+
+_WIRE_KEY = "x-cadence-trace"  # gRPC metadata key (lowercase required)
+
 
 class TraceContext:
     """The propagated identity of a position in a trace: enough to
@@ -61,9 +61,23 @@ class TraceContext:
         self.span_id = span_id
         self.sampled = sampled
 
+    def to_wire(self) -> str:
+        return f"{self.trace_id}:{self.span_id}:{int(self.sampled)}"
+
+    @classmethod
+    def from_wire(cls, value: str) -> Optional["TraceContext"]:
+        """Parse the wire form; malformed input returns None (a bad
+        header must never fail the RPC it rode in on)."""
+        try:
+            trace_id, span_id, sampled = str(value).split(":")
+            if not trace_id or not span_id:
+                return None
+            return cls(trace_id, span_id, sampled == "1")
+        except (ValueError, AttributeError):
+            return None
+
     def __repr__(self) -> str:  # debugging aid only
-        return (f"TraceContext({self.trace_id}:{self.span_id}:"
-                f"{int(self.sampled)})")
+        return f"TraceContext({self.to_wire()})"
 
 
 class _NoopSpan:
@@ -370,11 +384,48 @@ class Tracer:
                 })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
+    def chrome_trace_json(self, trace_id: Optional[str] = None) -> str:
+        return json.dumps(self.chrome_trace(trace_id), indent=1)
+
 
 # the process tracer every layer shares (bootstrap configures it from
 # the telemetry: YAML section; tests reconfigure + clear per test)
 TRACER = Tracer()
 
 
+def current_span() -> Optional[Span]:
+    return TRACER.current()
+
+
 def annotate(text: str) -> None:
     TRACER.annotate(text)
+
+
+def configure(sample_rate: Optional[float] = None,
+              capacity: Optional[int] = None,
+              metrics: Optional[Scope] = None) -> Tracer:
+    return TRACER.configure(
+        sample_rate=sample_rate, capacity=capacity, metrics=metrics
+    )
+
+
+# -- wire helpers (rpc/client.py + rpc/server.py) -----------------------
+
+
+def inject_metadata(metadata=None):
+    """gRPC metadata tuple carrying the current context, or the input
+    unchanged when there is nothing to propagate."""
+    ctx = TRACER.current_context()
+    if ctx is None:
+        return metadata
+    return tuple(metadata or ()) + ((_WIRE_KEY, ctx.to_wire()),)
+
+
+def extract_metadata(metadata) -> Optional[TraceContext]:
+    """TraceContext from incoming gRPC metadata, or None."""
+    if not metadata:
+        return None
+    for key, value in metadata:
+        if key == _WIRE_KEY:
+            return TraceContext.from_wire(value)
+    return None

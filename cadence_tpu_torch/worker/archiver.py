@@ -8,7 +8,9 @@ archiveVisibilityActivity / deleteHistoryActivity). The trigger side is
 the history close-execution processor (archivalClient.Archive →
 SignalWithStart on the system workflow).
 
-A copy of the reference package's ``worker/archiver.py``.
+A copy of the reference package's ``worker/archiver.py``; the port's
+``ArchivalClient.attach`` wires the trigger onto a history service's
+close processors (the Onebox twin and ``config.start_services`` use it).
 """
 
 from __future__ import annotations
@@ -96,6 +98,15 @@ class ArchivalClient:
                 signal_input=json.dumps(payload).encode(),
             )
         )
+
+    def attach(self, history_service) -> None:
+        """Become the archival trigger of every close processor of the
+        shards ``history_service`` owns now."""
+        controller = history_service.controller
+        for shard_id in controller.owned_shards():
+            for p in controller._handles[shard_id].processors:
+                if hasattr(p, "_process_close"):
+                    p.archival_client = self
 
 
 # transient store errors must not fail the system run: one poisoned

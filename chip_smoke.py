@@ -183,7 +183,33 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     ``WorkerService`` applying the active's published replication tasks
     (512 workflows, 2,560 tasks) and its domain records, every state and
     history equal on both sides;
-16. the refresh's line (``device_passes``: torch ops, no kernel of its
+16. ``entry_points``: the server's entry points (``cadence_tpu_torch/
+    rpc``, ``client/routed.py``, ``config``, ``tools/cli.py``,
+    ``canary``, ``utils/pprof.py``) over gRPC: (a) ``config_host``, a
+    host booted by ``start_services`` from a config (a YAML file too),
+    memory store, 4 shards, the four services on loopback ports, the
+    serving section on at 1,024 lanes; 1,024 workflows started through a
+    ``RemoteFrontend`` (every fourth with an activity) and answered by 8
+    SDK workers over gRPC, a signal each, ``RemoteHistory.serving_read``
+    of every workflow (a cold miss that seats it), a second signal each,
+    a second read (resident, its tick composing the signal), every read
+    against the host replay of the history fetched over the wire at its
+    tip, then the canary's 20 probes over gRPC; host-clock p50/p99 per
+    verb over the wire beside phase 12's in-process figures, sustained
+    verbs/s, FSM launches by route, the device-busy share of 256 cold
+    reads; (c) ``cli``: the operator CLI in subprocesses against (a)'s
+    frontend (domain register and describe, workflow start, signal,
+    observe and show, admin describe-host, queue-state and dlq read, a
+    canary), each output against the in-process answer, the schema
+    verbs, the CLI's Onebox server started, pinged and ended by SIGTERM,
+    and a pprof device trace around one serving tick that must name the
+    FSM kernel; (b) ``two_process``: the CLI's ``server --config
+    --services history,matching`` in a child process on the card over a
+    shared sqlite file, 16 shards, the frontend alone in the script's
+    process; 256 workflows through it, a signal each, a ``serving_read``
+    each over the child's history endpoint against the host replay, the
+    child ended by SIGTERM with exit code 0;
+17. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -199,6 +225,7 @@ import gc
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2739,26 +2766,28 @@ def fe_timed(fn, lat):
     return call
 
 
-def fe_settled(box, domain_id, runs):
-    """Workflows with a decision or an activity still outstanding."""
+def fe_settled(box, domain_id, runs, shard_for=None):
+    """Workflows with a decision or an activity still outstanding, read
+    from ``box``'s store (a shard a workflow by its history controller,
+    or by ``shard_for`` on a host that runs none)."""
     from cadence_tpu_torch.core.ids import EMPTY_EVENT_ID
 
     ex = box.persistence.execution
+    shard_for = shard_for or box.history.controller.shard_for
     out = []
     for wf, run in runs.items():
         snap = ex.get_workflow_execution(
-            box.history.controller.shard_for(wf), domain_id, wf,
-            run).snapshot
+            shard_for(wf), domain_id, wf, run).snapshot
         if (snap["execution_info"]["decision_schedule_id"]
                 != EMPTY_EVENT_ID or snap["pending_activities"]):
             out.append(wf)
     return out
 
 
-def fe_wait_settled(box, domain_id, runs, what):
+def fe_wait_settled(box, domain_id, runs, what, shard_for=None):
     t0 = time.perf_counter()
     while True:
-        left = fe_settled(box, domain_id, runs)
+        left = fe_settled(box, domain_id, runs, shard_for)
         if not left:
             return time.perf_counter() - t0
         check(time.perf_counter() - t0 < FE_WAIT_S,
@@ -2775,7 +2804,8 @@ def fe_branch(box, domain_id, wf, run):
 
 def phase_frontend(torch, np, S, RC, smi, device="cuda"):
     """Phase 12: the port's frontend and SDK workers over the history
-    host on the card. Returns FSM launches by route."""
+    host on the card. Returns FSM launches by route and the host-clock
+    percentiles of each verb."""
     from cadence_tpu_torch.checkpoint import CheckpointManager
     from cadence_tpu_torch.core.enums import EventType
     from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
@@ -2974,10 +3004,10 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
             w.stop()
         if not drained:
             box.stop()
+    host_ms = {k: percentiles(np, v) for k, v in lat.items()}
     emit({"phase": "frontend", "part": "latency", "workflows": n,
           "workers": FE_WORKERS, "shards": FE_SHARDS,
-          "requests": FE_REQUESTS,
-          "host_ms": {k: percentiles(np, v) for k, v in lat.items()},
+          "requests": FE_REQUESTS, "host_ms": host_ms,
           "nvidia_smi": smi})
     emit({"phase": "frontend", "part": "summary",
           "phase_s": time.perf_counter() - t_phase, "start_s": start_s,
@@ -3021,7 +3051,7 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
           "the engine is not empty after stop()")
     for route, k in routes.counts.items():
         check(k > 0, f"the frontend phase made no {route} launch")
-    return dict(routes.counts)
+    return dict(routes.counts), host_ms
 
 
 # -- phase 13: the replication planes ------------------------------------
@@ -5194,6 +5224,742 @@ def phase_worker_store(torch, np, S, P, RC, unpack, smi, p8,
     return launches
 
 
+# -- phase 16: the server's entry points ----------------------------------
+
+# phase 16, the server's entry points over the wire. (a) config_host: one
+# history host's worth of services booted from a config by start_services
+# in the script's process (memory store, 4 shards, loopback ports for the
+# four services, the serving section on at 1,024 lanes, a lane a
+# workflow), the config read from a YAML file as well; 1,024 workflows
+# started through a RemoteFrontend (every fourth with an activity, each
+# then looping on "ping"), answered by 8 SDK workers (sticky) over gRPC;
+# a signal each, then RemoteHistory.serving_read of every workflow (a
+# cold miss that seats it), a second signal each, then a second read (a
+# resident hit whose tick composes the signal's events), every read
+# against the host StateBuilder replay of the history fetched over the
+# wire at the read's tip; then the canary's 20 probes over the wire. (b)
+# two_process: the CLI's server in a child process with the history and
+# matching services over a sqlite file both processes share, 16 shards
+# (tests/test_two_process_plane.py's ring), the serving section on, on
+# the card; the script's process runs the frontend alone, which routes
+# over the ring and gRPC; 256 workflows through it, a signal each, a
+# serving_read each over the child's history endpoint against the host
+# replay; SIGTERM ends the child. (c) cli: the operator CLI in
+# subprocesses against (a)'s frontend, each JSON output against (a)'s
+# in-process answer; the schema verbs on a sqlite file; the CLI's Onebox
+# server started, pinged and ended by SIGTERM; a pprof device trace around
+# one serving tick
+ENTRY_SHARDS, ENTRY_WORKFLOWS, ENTRY_WORKERS = 4, 1024, 8
+ENTRY_BUSY_READS, ENTRY_WAIT_S, ENTRY_READY_S = 256, 300.0, 120.0
+ENTRY_PINGS = 256
+ENTRY_DOMAIN, ENTRY_TASK_LIST = "entry-domain", "entry-tl"
+TWO_PROC_SHARDS, TWO_PROC_WORKFLOWS, TWO_PROC_WORKERS = 16, 256, 4
+CLI_DOMAIN, CLI_WORKFLOW, CLI_TOPIC, CLI_TIMEOUT_S = (
+    "cli-domain", "cli-wf", "entry-poison", 120)
+CLI_CANARY_PROBES = "echo,signal,query"
+FSM_KERNEL_NAME = "replay_fsm_kernel"
+# idle seconds at each end of the pprof trace: late in this script's
+# whole run the profiler dropped every device activity of a ~0.1 s
+# window (its runtime calls kept) while a window of seconds kept them,
+# as if the device timestamps had drifted out of a short window
+ENTRY_TRACE_PAD_S = 2.0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def entry_raw_config(shards, lanes, store, services):
+    """A config dict: ``services`` maps a service to its port, the ring
+    seeded with them, the serving section on at ``lanes`` (idle for twice
+    that many ticks before a lane evicts)."""
+    addrs = {s: f"127.0.0.1:{p}" for s, p in services.items()}
+    return {
+        "persistence": {"numHistoryShards": shards, **store},
+        "services": {s: {"rpcAddress": a} for s, a in addrs.items()},
+        "ring": {"bootstrapHosts": {
+            s: [addrs[s]] for s in ("history", "matching") if s in addrs}},
+        "serving": {"enabled": True, "lanes": lanes,
+                    "idleTicks": 2 * lanes},
+    }
+
+
+def host_snapshot(domain_id, wf, run, batches):
+    """The port's host oracle: ``StateBuilder`` over event batches, in
+    the canonical snapshot form the serving reads carry."""
+    from cadence_tpu_torch.core.mutable_state import MutableState
+    from cadence_tpu_torch.core.state_builder import StateBuilder
+    from cadence_tpu_torch.core.version_history import VersionHistories
+    from cadence_tpu_torch.ops.unpack import mutable_state_to_snapshot
+
+    ms = MutableState(domain_id=domain_id)
+    ms.version_histories = VersionHistories.new_empty()
+    StateBuilder(ms).apply_batches(domain_id, "", wf, run, batches)
+    return mutable_state_to_snapshot(ms)
+
+
+def cli_echo(ctx, input):
+    """(c)'s workflow: waits for "go", returns the input and the
+    signal's payload."""
+    payload = yield ctx.wait_signal("go")
+    return input + b":" + payload
+
+
+def entry_workers(RemoteFrontend, Worker, address, domain, n, seen, lat):
+    """``n`` SDK workers, each over its own channel to the frontend."""
+    out = []
+    for k in range(n):
+        w = Worker(RemoteFrontend(address), domain, ENTRY_TASK_LIST,
+                   identity=f"entry-worker-{k}")
+        w.register_workflow("fe-signal-sink", fe_workflow(seen))
+        w.register_workflow("cli-echo", cli_echo)
+        w.register_activity("fe-work", lambda b: b"done:" + b)
+        w.decisions.poll_and_process_one = fe_timed(
+            w.decisions.poll_and_process_one, lat)
+        w.start()
+        out.append(w)
+    return out
+
+
+def stop_workers(workers):
+    for w in workers:
+        w.stop()
+        w.decisions.frontend.close()
+
+
+def entry_start(fe, StartWorkflowRequest, domain, wfs, lat, tag):
+    runs = {}
+    for i, wf in enumerate(wfs):
+        t0 = time.perf_counter()
+        runs[wf] = fe.start_workflow_execution(StartWorkflowRequest(
+            domain=domain, workflow_id=wf, workflow_type="fe-signal-sink",
+            task_list=ENTRY_TASK_LIST, input=b"%d" % i,
+            request_id=f"{tag}-start-{i}",
+            execution_start_to_close_timeout_seconds=36000,
+            task_start_to_close_timeout_seconds=3600))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def entry_signal(fe, SignalRequest, domain, runs, lat, tag):
+    for i, wf in enumerate(runs):
+        t0 = time.perf_counter()
+        fe.signal_workflow_execution(SignalRequest(
+            domain=domain, workflow_id=wf, signal_name="ping",
+            input=b"%d" % i, identity="entry-caller",
+            request_id=f"{tag}-{i}"))
+        lat.append((time.perf_counter() - t0) * 1e3)
+
+
+def entry_check_read(got, want_batches, domain_id, wf, run):
+    """A serving read against the host replay of the batches fetched
+    over the wire at its tip; returns whether they agree."""
+    return got is not None and got.snapshot == host_snapshot(
+        domain_id, wf, run, want_batches)
+
+
+def entry_reads(hist, fe, domain, domain_id, runs, lat_read, lat_fetch,
+                mismatches):
+    """A serving read of every workflow over the history endpoint, each
+    against the host replay of the history the frontend serves at the
+    read's tip (its raw batches, which flatten to its paged history)."""
+    reads = {}
+    for wf, run in runs.items():
+        t0 = time.perf_counter()
+        reads[wf] = hist.serving_read(domain_id, wf, run)
+        lat_read.append((time.perf_counter() - t0) * 1e3)
+    for wf, run in runs.items():
+        got = reads[wf]
+        tip = got.snapshot["exec"]["next_event_id"]
+        t0 = time.perf_counter()
+        batches, _ = fe.get_workflow_execution_raw_history(
+            domain, wf, run, 1, tip)
+        events, token = fe.get_workflow_execution_history(domain, wf, run)
+        lat_fetch.append((time.perf_counter() - t0) * 1e3)
+        flat = [e.to_dict() for b in batches for e in b]
+        if (token or flat != [e.to_dict() for e in events]
+                or not entry_check_read(got, batches, domain_id, wf, run)):
+            mismatches.append(wf)
+    return reads
+
+
+def entry_host(RC, tmp, yaml, device):
+    """(a)'s host, booted by ``start_services`` from a config (read from a
+    YAML file too when ``yaml`` imports), with its engine's launches
+    counted by route; returns (host, routes, whether the file was read)."""
+    from cadence_tpu_torch.config import (
+        load_config, load_config_dict, start_services)
+
+    ports = {s: free_port() for s in ("frontend", "history", "matching",
+                                      "worker")}
+    raw = entry_raw_config(ENTRY_SHARDS, ENTRY_WORKFLOWS,
+                           {"defaultStore": "memory"}, ports)
+    raw["services"]["frontend"]["pprofPort"] = free_port()
+    cfg = load_config_dict(raw)
+    from_file = False
+    if yaml is not None:
+        path = os.path.join(tmp, "config_host.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        check(load_config(path) == cfg, "load_config of the YAML file "
+              "differs from load_config_dict of its dict")
+        from_file = True
+    host = start_services(cfg, device=device)
+    routes = FrontendRoutes(RC, prefix="entry")
+    routes.wrap(host.serving)
+    return host, routes, from_file
+
+
+def phase_entry_config_host(torch, np, smi, fe_host_ms, host, fe, hist,
+                            boot):
+    """(a): the traffic, the reads and the canary over the wire; returns
+    the domain id, the runs and the part's record. The SDK workers go
+    into ``boot["workers"]`` for the caller to stop."""
+    from cadence_tpu_torch.canary import run_canary
+    from cadence_tpu_torch.rpc.client import RemoteFrontend
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.worker import Worker
+
+    t_part = time.perf_counter()
+    n = ENTRY_WORKFLOWS
+    addr = host.addresses
+    lat = {k: [] for k in ("start", "signal", "cold_read", "resident_read",
+                           "history_fetch", "sdk_decision", "wire_ping")}
+    seen, mismatches = {}, []
+    reg = host.metrics.registry
+    wfs = [f"entry-wf-{i:05d}" for i in range(n)]
+    domain_id = fe.register_domain(ENTRY_DOMAIN)
+    workers = entry_workers(RemoteFrontend, Worker, addr["frontend"],
+                            ENTRY_DOMAIN, ENTRY_WORKERS, seen,
+                            lat["sdk_decision"])
+    boot["workers"] = workers
+    t_traffic = time.perf_counter()
+    runs = entry_start(fe, StartWorkflowRequest, ENTRY_DOMAIN, wfs,
+                       lat["start"], "entry")
+    entry_signal(fe, SignalRequest, ENTRY_DOMAIN, runs, lat["signal"],
+                 "entry-sig-0")
+    settle_s = fe_wait_settled(host, domain_id, runs, "the first signal")
+    traffic_s = time.perf_counter() - t_traffic
+    # the bare round trip: the endpoint's built-in ping, no handler
+    for _ in range(ENTRY_PINGS):
+        t0 = time.perf_counter()
+        check(fe.ping() == {"ok": True}, "the frontend's ping failed")
+        lat["wire_ping"].append((time.perf_counter() - t0) * 1e3)
+
+    # the first reads: cold misses that seat, a window under the profiler
+    misses0 = reg.counter_value("serving_cold_misses")
+    t0 = time.perf_counter()
+    head = dict(list(runs.items())[:ENTRY_BUSY_READS])
+    tail = dict(list(runs.items())[ENTRY_BUSY_READS:])
+    busy = device_busy(torch, lambda: entry_reads(
+        hist, fe, ENTRY_DOMAIN, domain_id, head, lat["cold_read"],
+        lat["history_fetch"], mismatches))
+    entry_reads(hist, fe, ENTRY_DOMAIN, domain_id, tail, lat["cold_read"],
+                lat["history_fetch"], mismatches)
+    cold_s = time.perf_counter() - t0
+    cold_misses = reg.counter_value("serving_cold_misses") - misses0
+
+    # a second signal, then the resident reads whose ticks compose it
+    entry_signal(fe, SignalRequest, ENTRY_DOMAIN, runs, lat["signal"],
+                 "entry-sig-1")
+    settle2_s = fe_wait_settled(host, domain_id, runs, "the second signal")
+    hits0 = reg.counter_value("serving_resident_hits")
+    t0 = time.perf_counter()
+    entry_reads(hist, fe, ENTRY_DOMAIN, domain_id, runs,
+                lat["resident_read"], lat["history_fetch"], mismatches)
+    resident_s = time.perf_counter() - t0
+    resident_hits = reg.counter_value("serving_resident_hits") - hits0
+    misses_after = reg.counter_value("serving_cold_misses") - misses0
+
+    # the canary over the wire
+    t0 = time.perf_counter()
+    canary = run_canary(address=addr["frontend"])
+    canary_s = time.perf_counter() - t0
+    failed = [r for r in canary if not r["ok"]]
+    rec = {
+        "phase": "entry_points", "part": "config_host", "workflows": n,
+        "workers": ENTRY_WORKERS, "shards": ENTRY_SHARDS,
+        "services": sorted(host.services),
+        "config_from_yaml_file": boot["from_file"],
+        "boot_s": boot["boot_s"], "traffic_s": traffic_s,
+        "settle_s": settle_s,
+        "settle_second_signal_s": settle2_s,
+        # the starts and the first signals, their decisions settled
+        "verbs_per_s": 2 * n / traffic_s,
+        "cold_reads_s": cold_s, "resident_reads_s": resident_s,
+        "reads_per_s": 2 * n / (cold_s + resident_s),
+        "host_ms_over_wire": {k: percentiles(np, v) for k, v in lat.items()},
+        "host_ms_in_process_phase12": fe_host_ms,
+        "cold_misses": cold_misses, "resident_hits": resident_hits,
+        "cold_misses_in_resident_pass": misses_after - cold_misses,
+        "read_mismatches": len(mismatches),
+        "device_busy": {"cold_reads": ENTRY_BUSY_READS, **busy},
+        "canary": {"probes": len(canary), "failed": failed,
+                   "wall_s": canary_s,
+                   "latency_ms": {r["probe"]: r["latency_ms"]
+                                  for r in canary}},
+        "part_s": time.perf_counter() - t_part, "nvidia_smi": smi}
+    check(not mismatches, f"{len(mismatches)} serving reads differ from the "
+          f"host replay over the wire, first {mismatches[:3]}")
+    check(cold_misses == n and resident_hits == n
+          and misses_after == cold_misses,
+          f"{cold_misses} cold misses and {resident_hits} resident hits "
+          f"({misses_after - cold_misses} misses in the resident pass) for "
+          f"{n} workflows")
+    check(len(canary) == 20 and not failed,
+          f"canary over gRPC: {len(canary)} probes, failed {failed}")
+    return domain_id, runs, rec
+
+
+def cli_env():
+    return dict(os.environ, PYTHONPATH=str(ROOT))
+
+
+def cli_child(args, log):
+    """The CLI with ``args`` in a child process, its output in ``log``."""
+    with open(log, "w") as lf:
+        return subprocess.Popen(
+            [sys.executable, "-m", "cadence_tpu_torch.tools.cli", *args],
+            cwd=str(ROOT), env=cli_env(), stdout=lf,
+            stderr=subprocess.STDOUT, text=True)
+
+
+def await_ping(child, log, endpoints, what):
+    """Seconds until every (service, address) of a child answers a ping;
+    fails if the child exits first or takes ENTRY_READY_S."""
+    from cadence_tpu_torch.rpc.client import grpc_ping
+
+    t0 = time.perf_counter()
+    while not all(grpc_ping(s, a) for s, a in endpoints):
+        check(child.poll() is None,
+              f"{what} exited: " + Path(log).read_text()[-1500:])
+        check(time.perf_counter() - t0 < ENTRY_READY_S,
+              f"{what} never answered a ping")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def end_child(child):
+    """SIGTERM, then the exit code (None if it had to be killed)."""
+    if child.poll() is None:
+        child.send_signal(signal.SIGTERM)
+    try:
+        return child.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait(timeout=10)
+        return None
+
+
+def cli_runs(cmds, address=None):
+    """The CLI's commands in parallel subprocesses: [(rc, stdout,
+    stderr)] in order."""
+    base = [sys.executable, "-m", "cadence_tpu_torch.tools.cli"]
+    if address:
+        base += ["--address", address]
+    procs = [subprocess.Popen(base + c, cwd=str(ROOT), env=cli_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    out = []
+    for c, p in zip(cmds, procs):
+        try:
+            o, e = p.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise RuntimeError(f"check failed: cli {c} timed out")
+        out.append((p.returncode, o, e))
+    return out
+
+
+def cli_json(res, what):
+    rc, out, err = res
+    check(rc == 0, f"cli {what} exited {rc}: {err[-1500:]}")
+    return json.loads(out)
+
+
+def as_cli_json(obj):
+    """What the CLI prints for ``obj``, read back as JSON."""
+    from cadence_tpu_torch.tools import cli
+
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = dataclasses.asdict(obj)
+    return json.loads(json.dumps(obj, default=cli._default))
+
+
+def poison(bus, key):
+    """One message nacked past its redelivery budget into the DLQ."""
+    bus.publish(CLI_TOPIC, key, b"bad payload")
+    consumer = bus.new_consumer(CLI_TOPIC, "entry-g")
+    while not bus.dlq_messages(CLI_TOPIC):
+        msg = consumer.poll(timeout=1.0)
+        check(msg is not None, "the poisoned message vanished")
+        consumer.nack(msg)
+
+
+def trace_kernels(path):
+    """The names of the CUDA kernels in a Chrome trace file, and its
+    count of events by category."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cats = {}
+    for e in events:
+        cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
+    return (sorted({e["name"] for e in events if e.get("cat") == "kernel"}),
+            cats)
+
+
+def phase_entry_pprof(host, fe, hist, domain_id, runs, tmp):
+    """One pprof device-trace round trip around one serving tick: inside
+    the trace a signal dirties a seated lane and its decision settles,
+    then a read; whichever read composes the lane first (this one, or
+    one the host makes meanwhile) ticks it inside the window."""
+    import http.client
+
+    wf, run = next(iter(runs.items()))
+    trace_dir = os.path.join(tmp, "pprof_trace")
+
+    def post(path):
+        h, p = host.pprof.address.rsplit(":", 1)
+        conn = http.client.HTTPConnection(h, int(p), timeout=60)
+        try:
+            conn.request("POST", path)
+            resp = conn.getresponse()
+            return resp.status, resp.read().decode()
+        finally:
+            conn.close()
+
+    from cadence_tpu_torch.ops import replay_cuda as RC
+    from cadence_tpu_torch.runtime.api import SignalRequest
+
+    launches0 = RC.replay_rows.launches
+    status, body = post(f"/debug/pprof/device/start?dir={trace_dir}")
+    check(status == 200, f"pprof device start answered {status}: {body}")
+    time.sleep(ENTRY_TRACE_PAD_S)
+    fe.signal_workflow_execution(SignalRequest(
+        domain=ENTRY_DOMAIN, workflow_id=wf, signal_name="ping",
+        input=b"pprof", identity="entry-caller", request_id="entry-pprof"))
+    fe_wait_settled(host, domain_id, {wf: run}, "the pprof signal")
+    got = hist.serving_read(domain_id, wf, run)
+    time.sleep(ENTRY_TRACE_PAD_S)
+    status, body = post("/debug/pprof/device/stop")
+    check(status == 200, f"pprof device stop answered {status}: {body}")
+    launches = RC.replay_rows.launches - launches0
+    path = body.split("-> ", 1)[1].strip()
+    kernels, cats = trace_kernels(path)
+    tip = got.snapshot["exec"]["next_event_id"]
+    batches, _ = fe.get_workflow_execution_raw_history(
+        ENTRY_DOMAIN, wf, run, 1, tip)
+    check(entry_check_read(got, batches, domain_id, wf, run),
+          "the pprof-traced read differs from the host replay")
+    check(any(FSM_KERNEL_NAME in k for k in kernels),
+          f"the device trace names no {FSM_KERNEL_NAME}: {kernels[:8]}, "
+          f"events by category {cats}, FSM launches in the window "
+          f"{launches}")
+    return {"trace_file_bytes": os.path.getsize(path),
+            "fsm_launches": launches, "events_by_category": cats,
+            "kernels": kernels[:8]}
+
+
+def phase_entry_cli(host, fe, hist, domain_id, runs, smi, tmp, device):
+    """(c): the CLI against (a)'s frontend, the schema verbs, the CLI's
+    server, the pprof round trip."""
+    t_part = time.perf_counter()
+    address = host.addresses["frontend"]
+    db = os.path.join(tmp, "cli_schema.db")
+    # the CLI's Onebox server boots while the verbs run
+    port = free_port()
+    log = os.path.join(tmp, "cli_server.log")
+    server = cli_child(["server", "--db", os.path.join(tmp, "cli_server.db"),
+                        "--port", str(port), "--no-worker", "--device",
+                        device], log)
+    try:
+        rec = phase_entry_cli_verbs(host, address, db, smi, tmp, device)
+        server_wait_s = await_ping(server, log, [
+            ("frontend", f"127.0.0.1:{port}")], "the CLI server")
+    finally:
+        server_rc = end_child(server)
+    server_log = Path(log).read_text()
+    pprof = phase_entry_pprof(host, fe, hist, domain_id, runs, tmp)
+    rec.update(server_wait_after_verbs_s=server_wait_s, server_rc=server_rc,
+               pprof=pprof, part_s=time.perf_counter() - t_part)
+    check(server_rc == 0 and f"listening on 127.0.0.1:{port}" in server_log,
+          f"the CLI server exited {server_rc}: {server_log[-1500:]}")
+    return rec
+
+
+def phase_entry_cli_verbs(host, address, db, smi, tmp, device):
+    """(c)'s verbs against (a)'s frontend and the schema verbs, each
+    output against the in-process answer; returns the part's record."""
+    from cadence_tpu_torch.runtime.persistence import schema as SC
+
+    poison(host.bus, "k1")
+    wf_args = ["--domain", ENTRY_DOMAIN, "--workflow-id", CLI_WORKFLOW]
+    (reg, start, desc_host, qstate, dlq, canary) = cli_runs([
+        ["domain", "register", "--name", CLI_DOMAIN],
+        ["workflow", "start", *wf_args, "--type", "cli-echo",
+         "--tasklist", ENTRY_TASK_LIST, "--input", "hello"],
+        ["admin", "describe-host"],
+        ["admin", "queue-state", "--shard-id", "0"],
+        ["admin", "dlq", "read", "--topic", CLI_TOPIC],
+        ["canary", "--probes", CLI_CANARY_PROBES, "--device", device],
+    ], address)
+    (setup,) = cli_runs([["schema", "setup", "--db", db]])
+    domain_out = cli_json(reg, "domain register")
+    run_id = cli_json(start, "workflow start")["run_id"]
+    want_host = as_cli_json(host.admin.describe_history_host())
+    got_host = cli_json(desc_host, "admin describe-host")
+    got_q = cli_json(qstate, "admin queue-state")
+    want_q = as_cli_json(host.admin.describe_queue_states(0))
+    got_dlq = cli_json(dlq, "admin dlq read")
+    msgs = host.admin.read_dlq_messages(CLI_TOPIC, -1, 100)
+    got_canary = cli_json(canary, "canary")
+    got_setup = cli_json(setup, "schema setup")
+    (desc, sig, version, compat) = cli_runs([
+        ["domain", "describe", "--name", CLI_DOMAIN],
+        ["workflow", "signal", *wf_args, "--name", "go", "--input", "world"],
+    ], address) + cli_runs([["schema", "version", "--db", db],
+                            ["schema", "check", "--db", db]])
+    got_desc = cli_json(desc, "domain describe")
+    want_desc = as_cli_json(host.frontend.describe_domain(name=CLI_DOMAIN))
+    got_sig = cli_json(sig, "workflow signal")
+    (observe,) = cli_runs([["workflow", "observe", *wf_args,
+                            "--timeout", "60"]], address)
+    check(observe[0] == 0, f"cli workflow observe exited {observe[0]}: "
+          f"{observe[2][-1500:]}")
+    lines = observe[1].splitlines()
+    brace = lines.index("{")
+    observed = [ln.split()[1] for ln in lines[:brace]]
+    observe_end = json.loads("\n".join(lines[brace:]))
+    (show,) = cli_runs([["workflow", "show", *wf_args]], address)
+    events, _ = host.frontend.get_workflow_execution_history(
+        ENTRY_DOMAIN, CLI_WORKFLOW, run_id)
+    want_show = as_cli_json([{
+        "id": e.event_id, "type": e.event_type.name, "version": e.version,
+        "attributes": {k: v for k, v in e.attributes.items()
+                       if v not in (None, "", b"")}} for e in events])
+    got_show = cli_json(show, "workflow show")
+
+    rec = {
+        "phase": "entry_points", "part": "cli",
+        "verbs": ["domain register", "domain describe", "workflow start",
+                  "workflow signal", "workflow observe", "workflow show",
+                  "admin describe-host", "admin queue-state",
+                  "admin dlq read", "canary", "schema setup",
+                  "schema version", "schema check", "server"],
+        "observed_events": len(observed), "observe_end": observe_end,
+        "canary_probes": [r["probe"] for r in got_canary],
+        "schema": {"setup": got_setup, "version": cli_json(
+            version, "schema version"), "check": cli_json(
+            compat, "schema check")},
+        "nvidia_smi": smi}
+    check(domain_out == {"domain_id": want_desc["info"]["id"]},
+          f"domain register printed {domain_out}")
+    check(got_desc == want_desc, "cli domain describe differs from the "
+          "in-process describe_domain")
+    check(set(got_host) == set(want_host)
+          and got_host["host"] == want_host["host"],
+          f"cli admin describe-host {got_host} against {want_host}")
+    check(got_q["shard_id"] == 0 and [q["queue"] for q in got_q["queues"]]
+          == [q["queue"] for q in want_q["queues"]],
+          f"cli admin queue-state {got_q} against {want_q}")
+    check(got_dlq == {"topic": CLI_TOPIC, "messages": [
+        {"offset": m["offset"], "key": m["key"],
+         "redelivery_count": m["redelivery_count"],
+         "value_bytes": len(m["value"])} for m in msgs]} and len(msgs) == 1,
+          f"cli admin dlq read {got_dlq} against {msgs}")
+    check(got_sig == {"signaled": CLI_WORKFLOW}, f"cli signal: {got_sig}")
+    check(observe_end == {"closed": True, "events": len(events)}
+          and observed == [e.event_type.name for e in events],
+          f"cli observe {observe_end} {observed} against "
+          f"{len(events)} events")
+    check(got_show == want_show, "cli workflow show differs from the "
+          "in-process history")
+    check(got_show[-1]["type"] == "WorkflowExecutionCompleted"
+          and got_show[-1]["attributes"]["result"] == "hello:world",
+          f"cli-echo closed with {got_show[-1]}")
+    check(len(got_canary) == len(CLI_CANARY_PROBES.split(","))
+          and all(r["ok"] for r in got_canary),
+          f"cli canary: {got_canary}")
+    check(got_setup["db_version"] == SC.CURRENT_SCHEMA_VERSION
+          and [a["version"] for a in got_setup["applied"]]
+          == [m[0] for m in SC.MIGRATIONS],
+          f"cli schema setup: {got_setup}")
+    check(rec["schema"]["version"] == {
+        "db_version": SC.CURRENT_SCHEMA_VERSION,
+        "build_version": SC.CURRENT_SCHEMA_VERSION}
+          and rec["schema"]["check"] == {"compatible": True},
+          f"cli schema version/check: {rec['schema']}")
+    return rec
+
+
+def entry_two_process_child(tmp, device):
+    """(b)'s child: the CLI's server with history and matching over a
+    sqlite file, the serving section on, on ``device``. Returns its
+    config and process."""
+    ports = {s: free_port() for s in ("frontend", "history", "matching")}
+    raw = entry_raw_config(
+        TWO_PROC_SHARDS, TWO_PROC_WORKFLOWS,
+        {"defaultStore": "sqlite",
+         "sqlitePath": os.path.join(tmp, "two_process.db")}, ports)
+    path = os.path.join(tmp, "two_process.yaml")
+    with open(path, "w") as f:
+        json.dump(raw, f)  # JSON is YAML
+    log = os.path.join(tmp, "two_process_child.log")
+    child = cli_child(["server", "--config", path, "--services",
+                       "history,matching", "--device", device], log)
+    return {"raw": raw, "child": child, "log": log,
+            "started": time.perf_counter()}
+
+
+def phase_entry_two_process(np, smi, two, device):
+    """(b): the frontend in this process over the child's history and
+    matching; the child ends by SIGTERM."""
+    from cadence_tpu_torch.config import load_config_dict, start_services
+    from cadence_tpu_torch.rpc.client import RemoteFrontend, RemoteHistory
+    from cadence_tpu_torch.runtime.api import (
+        SignalRequest, StartWorkflowRequest)
+    from cadence_tpu_torch.utils.hashing import shard_for_workflow
+    from cadence_tpu_torch.worker import Worker
+
+    t_part = time.perf_counter()
+    n = TWO_PROC_WORKFLOWS
+    raw, child, log = two["raw"], two["child"], two["log"]
+    child_h = raw["services"]["history"]["rpcAddress"]
+    child_m = raw["services"]["matching"]["rpcAddress"]
+    lat = {k: [] for k in ("start", "signal", "serving_read",
+                           "history_fetch", "sdk_decision")}
+    seen, mismatches, workers = {}, [], []
+    front = fe = hist = None
+    try:
+        await_ping(child, log, [("history", child_h),
+                                ("matching", child_m)],
+                   "the two-process child")
+        child_ready_s = time.perf_counter() - two["started"]
+        front = start_services(load_config_dict(raw), ["frontend"],
+                               device=device)
+        fe = RemoteFrontend(front.addresses["frontend"])
+        hist = RemoteHistory(child_h)
+        domain_id = fe.register_domain(ENTRY_DOMAIN)
+        workers = entry_workers(RemoteFrontend, Worker,
+                                front.addresses["frontend"], ENTRY_DOMAIN,
+                                TWO_PROC_WORKERS, seen, lat["sdk_decision"])
+        t0 = time.perf_counter()
+        runs = entry_start(fe, StartWorkflowRequest, ENTRY_DOMAIN,
+                           [f"two-wf-{i:05d}" for i in range(n)],
+                           lat["start"], "two")
+        entry_signal(fe, SignalRequest, ENTRY_DOMAIN, runs, lat["signal"],
+                     "two-sig")
+        fe_wait_settled(front, domain_id, runs, "the two-process signals",
+                        shard_for=lambda wf: shard_for_workflow(
+                            wf, TWO_PROC_SHARDS))
+        traffic_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for wf, run in runs.items():
+            t1 = time.perf_counter()
+            got = hist.serving_read(domain_id, wf, run)
+            lat["serving_read"].append((time.perf_counter() - t1) * 1e3)
+            tip = got.snapshot["exec"]["next_event_id"]
+            t1 = time.perf_counter()
+            batches, _ = hist.get_workflow_history_raw(
+                domain_id, wf, run, 1, tip)
+            lat["history_fetch"].append((time.perf_counter() - t1) * 1e3)
+            if not entry_check_read(got, batches, domain_id, wf, run):
+                mismatches.append(wf)
+        reads_s = time.perf_counter() - t0
+        child_shards = hist.describe()
+    finally:
+        stop_workers(workers)
+        for c in (fe, hist):
+            if c is not None:
+                c.close()
+        if front is not None:
+            front.stop()
+        child_rc = end_child(child)
+    rec = {
+        "phase": "entry_points", "part": "two_process", "workflows": n,
+        "shards": TWO_PROC_SHARDS, "workers": TWO_PROC_WORKERS,
+        "child_ready_s": child_ready_s,
+        "traffic_s": traffic_s, "reads_s": reads_s,
+        "host_ms_over_wire": {k: percentiles(np, v) for k, v in lat.items()},
+        "child_describe": child_shards,
+        "child_fsm_launches": "not visible: the child runs no frontend, so "
+                              "neither describe-host, dump_traces nor the "
+                              "metrics registry reaches it; the exact reads "
+                              "stand for them",
+        "read_mismatches": len(mismatches), "child_rc": child_rc,
+        "part_s": time.perf_counter() - t_part, "nvidia_smi": smi}
+    check(not mismatches, f"{len(mismatches)} of {n} two-process reads "
+          f"differ from the host replay, first {mismatches[:3]}")
+    check(child_rc == 0, f"the two-process child exited {child_rc}: "
+          + Path(log).read_text()[-1500:])
+    return rec
+
+
+def phase_entry_points(torch, np, RC, smi, fe_host_ms, device="cuda"):
+    """Phase 16: (a) the config-booted host, (c) the CLI against it,
+    (b) the two-process host. Returns FSM launches by route."""
+    import grpc
+
+    try:
+        import yaml
+    except ImportError:  # the YAML file path is skipped, and said so
+        yaml = None
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        launches, stop_s = phase_entry_host_and_cli(
+            torch, np, RC, smi, fe_host_ms, tmp, yaml, device)
+        # the child starts only now: an idle second host's pumps would
+        # share the machine's cores with (a)'s measurements
+        two = entry_two_process_child(tmp, device)
+        try:
+            emit(phase_entry_two_process(np, smi, two, device))
+        finally:
+            end_child(two["child"])
+    emit({"phase": "entry_points", "part": "summary", "grpc": True,
+          "grpc_version": grpc.__version__, "yaml": yaml is not None,
+          "phase_s": time.perf_counter() - t_phase,
+          "config_host_stop_s": stop_s, "launches_by_route": launches,
+          "nvidia_smi": smi})
+    for route, k in launches.items():
+        check(k > 0, f"the entry-points phase made no {route} launch")
+    return launches
+
+
+def phase_entry_host_and_cli(torch, np, RC, smi, fe_host_ms, tmp, yaml,
+                             device):
+    """(a) then (c) on one config-booted host, stopped at the end; returns
+    its FSM launches by route and the stop's wall s."""
+    from cadence_tpu_torch.rpc.client import RemoteFrontend, RemoteHistory
+
+    t0 = time.perf_counter()
+    host, routes, from_file = entry_host(RC, tmp, yaml, device)
+    boot = {"boot_s": time.perf_counter() - t0, "from_file": from_file,
+            "workers": []}
+    fe = RemoteFrontend(host.addresses["frontend"])
+    hist = RemoteHistory(host.addresses["history"])
+    try:
+        domain_id, runs, rec_a = phase_entry_config_host(
+            torch, np, smi, fe_host_ms, host, fe, hist, boot)
+        emit(rec_a)
+        emit(phase_entry_cli(host, fe, hist, domain_id, runs, smi, tmp,
+                             device))
+    finally:
+        stop_workers(boot["workers"])
+        fe.close()
+        hist.close()
+        t0 = time.perf_counter()
+        host.stop()
+        stop_s = time.perf_counter() - t0
+    return dict(routes.counts), stop_s
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5433,7 +6199,8 @@ def main() -> int:
 
     # 12. the frontend and the worker SDK over the history host, launches
     # counted by route inside the phase
-    frontend_launches = phase_frontend(torch, np, S, RC, smi)
+    frontend_launches, frontend_host_ms = phase_frontend(
+        torch, np, S, RC, smi)
 
     # 13. the replication planes between two port clusters, launches
     # counted by route inside the phase
@@ -5451,7 +6218,12 @@ def main() -> int:
                                          p8)
     del p8
 
-    # 16. kernels and device
+    # 16. the server's entry points over gRPC, launches counted by route
+    # inside the phase
+    entry_launches = phase_entry_points(torch, np, RC, smi,
+                                        frontend_host_ms)
+
+    # 17. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -5468,7 +6240,8 @@ def main() -> int:
         + sum(frontend_launches.values())
         + sum(replication_launches.values())
         + sum(topology_launches.values())
-        + sum(worker_launches.values()),
+        + sum(worker_launches.values())
+        + sum(entry_launches.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -5509,7 +6282,7 @@ def main() -> int:
                               **serve_launches, **parallel_launches,
                               **service_launches, **frontend_launches,
                               **replication_launches, **topology_launches,
-                              **worker_launches},
+                              **worker_launches, **entry_launches},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

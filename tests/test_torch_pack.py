@@ -208,9 +208,11 @@ def test_import_hygiene():
     simulator, the parallel queue executor, resharding, the capacity
     autopilot, the conflict-matrix artifact, the trimmed config, the
     topology cells, the worker services and their daemons, the sqlite
-    store, its schema and checkpoint store, the environment module and
-    the onebox and serving-demo twins included, loads neither jax nor
-    the reference package."""
+    store, its schema and checkpoint store, the environment module, the
+    onebox and serving-demo twins, and the server's entry points (the
+    gRPC plane, the routed clients, the config loader and bootstrap, the
+    template renderer, the operator CLI, the canary and the pprof
+    endpoint) included, loads neither jax nor the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -252,6 +254,12 @@ def test_import_hygiene():
         "import cadence_tpu_torch.runtime.persistence.schema\n"
         "import cadence_tpu_torch.testing.environment\n"
         "from cadence_tpu_torch.checkpoint import SqliteCheckpointStore\n"
+        "import cadence_tpu_torch.rpc.server, cadence_tpu_torch.rpc.client\n"
+        "import cadence_tpu_torch.client.routed, cadence_tpu_torch.config\n"
+        "import cadence_tpu_torch.config.bootstrap\n"
+        "import cadence_tpu_torch.config.render\n"
+        "import cadence_tpu_torch.tools.cli, cadence_tpu_torch.canary\n"
+        "import cadence_tpu_torch.utils.pprof\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"

@@ -14,15 +14,10 @@ reference's ``FrontendBox`` (``tests/test_frontend.py``): that module is
 exec'd on the port too and registered as ``tests.port_test_frontend``,
 and the cases import it from there, never from the reference.
 
-``test_config_bootstrap.py``'s schema cases (``TestSchemaVersioning``)
-and ``test_environment_module_defaults`` run on the port as well, taken
-out of the module on their own: the module's other cases boot services
-through ``config.bootstrap`` and the rpc plane, which the port has not
-yet. Left out, each with its reason (``LEFT_OUT``): the second half of
-``test_environment_module_defaults``, which drives ``setup_env`` (the JAX
-platform and mesh knobs the port's environment module does not carry),
-and the torn-write case of ``test_persistence.py``, which builds a fault
-schedule (``FaultRule``, ``FaultSchedule``) the port has not yet.
+``test_config_bootstrap.py`` runs whole in ``test_torch_entry_cases.py``.
+Left out, with its reason (``LEFT_OUT``): the torn-write case of
+``test_persistence.py``, which builds a fault schedule (``FaultRule``,
+``FaultSchedule``) the port has not yet.
 """
 
 from __future__ import annotations
@@ -45,25 +40,13 @@ SOURCES = {
     "test_worker_daemons": None,
     "test_archived_reads": None,
     "test_checkpoint": ("test_store_roundtrip_order_and_prune",),
-    "test_config_bootstrap": ("TestSchemaVersioning",
-                              "test_environment_module_defaults"),
 }
 # what is not run on the port, and why
 LEFT_OUT = {
     "test_persistence::TestReplicationProgress::"
     "test_torn_write_retry_reads_landed_blob_as_success":
         "builds a FaultSchedule: fault injection is not ported yet",
-    "test_config_bootstrap::test_environment_module_defaults, setup_env":
-        "setup_env pins JAX's platform and virtual mesh; the port's "
-        "environment module carries no JAX knobs",
 }
-# the setup_env half of test_environment_module_defaults, cut out
-_SETUP_ENV_HALF = '''
-    env = {"XLA_FLAGS": ""}
-    E.setup_env(env)
-    assert env["JAX_PLATFORMS"] == "cpu"
-    assert "device_count=8" in env["XLA_FLAGS"]
-'''
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder", "Onebox",
                  "replay_packed")
 _FRONTEND_MODULE = "tests.port_test_frontend"
@@ -76,15 +59,11 @@ def _port_source(src: str) -> str:
 
 
 def _only(src: str, names) -> str:
-    """The module without its tests but the named ones, and without the
-    services bootstrap's import."""
+    """The module without its tests but the named ones."""
     tree = ast.parse(src)
     keep = []
     for node in tree.body:
         name = getattr(node, "name", "")
-        if isinstance(node, ast.ImportFrom) and (
-                node.module or "").startswith("cadence_tpu.config"):
-            continue
         if name.startswith(("test_", "Test")) and name not in names:
             continue
         keep.append(node)
@@ -133,9 +112,6 @@ def _load(name: str) -> dict:
     only = SOURCES[name]
     if only is not None:
         src = _only(src, only)
-    if name == "test_config_bootstrap":
-        assert _SETUP_ENV_HALF in src
-        src = src.replace(_SETUP_ENV_HALF, "\n")
     return _exec(name, _port_source(src), f"tests.port_{name}")
 
 
@@ -186,8 +162,8 @@ CASES = sorted(_ALL)
 
 
 def test_reference_cases_found():
-    """Every test of the five sources is a case here, once per backend,
-    save the two named in ``LEFT_OUT``."""
+    """Every test of the four sources is a case here, once per backend,
+    save the one named in ``LEFT_OUT``."""
     per_file = {}
     for key in CASES:
         per_file[key.split("::")[0]] = per_file.get(key.split("::")[0],
@@ -197,11 +173,9 @@ def test_reference_cases_found():
         "test_worker_daemons": 8,
         "test_archived_reads": 5,
         "test_checkpoint": 2,
-        "test_config_bootstrap": 5,
     }
     assert ("test_persistence::TestHistoryTrees::"
             "test_list_history_trees_both_backends[memory]") in _ALL
-    assert "test_config_bootstrap::test_environment_module_defaults" in _ALL
     # the daemons build the port's FrontendBox, not the reference's
     frontend = _frontend_module()
     assert frontend.FrontendBox.__module__ == _FRONTEND_MODULE
