@@ -12,9 +12,9 @@ the durable backend over the sqlite bundle's connection (the
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Tuple
 
+from ..utils.locks import make_guarded, make_lock
 from .record import ReplayCheckpoint
 
 
@@ -66,11 +66,15 @@ def _decode_many(blobs) -> List[ReplayCheckpoint]:
 
 class MemoryCheckpointStore(CheckpointStore):
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("MemoryCheckpointStore._lock")
         # (branch_key, event_id) -> json blob
-        self._rows: Dict[Tuple[str, int], str] = {}
+        self._rows: Dict[Tuple[str, int], str] = make_guarded(
+            {}, "MemoryCheckpointStore._rows", self._lock
+        )
         # (branch_key, event_id) -> tree_id (index for tree scans/GC)
-        self._tree: Dict[Tuple[str, int], str] = {}
+        self._tree: Dict[Tuple[str, int], str] = make_guarded(
+            {}, "MemoryCheckpointStore._tree", self._lock
+        )
 
     def put_checkpoint(self, ckpt: ReplayCheckpoint) -> None:
         blob = ckpt.to_json()

@@ -11,11 +11,11 @@ A copy of the reference package's ``config/bootstrap.py`` over the
 port's services, assembled in the same order. ``start_services`` takes
 ``device`` (default ``"cuda"``): the history service's rebuilds and the
 serving section's engine run there. A config whose chaos section is
-enabled raises ``NotImplementedError`` (the fault schedules are not
-ported). A host that runs the history and worker services puts the
-worker's archival trigger on its shards' close processors, as the
-Onebox does; the reference's bootstrap never did, so its hosts never
-archived.
+enabled wraps the persistence bundle in its fault schedule and hands it
+to the history service, as the reference does. A host that runs the
+history and worker services puts the worker's archival trigger on its
+shards' close processors, as the Onebox does; the reference's bootstrap
+never did, so its hosts never archived.
 """
 
 from __future__ import annotations

@@ -6,12 +6,9 @@ utils/dynamicconfig.py. Unknown keys are rejected so a typo'd config
 fails at boot, matching the reference's strict yaml decoding.
 
 A copy of the reference package's ``config/static.py``, with the same
-keys, checks and error text, and two departures. The device the serving
-engine runs on is no config key: ``config.bootstrap.start_services``
-hands its ``device`` to ``ServingConfig.build_engine``. The fault
-schedules are not ported: ``ChaosConfig`` parses as the reference's, and
-a section with rules, or one enabled at boot, raises
-``NotImplementedError``.
+keys, checks and error text, and one departure: the device the serving
+engine runs on is no config key (``config.bootstrap.start_services``
+hands its ``device`` to ``ServingConfig.build_engine``).
 """
 
 from __future__ import annotations
@@ -120,8 +117,7 @@ class ChaosConfig:
     rules: List[Dict] = dataclasses.field(default_factory=list)
 
     def validate(self) -> None:
-        # no rules: an empty schedule, valid whether enabled or not
-        if not self.rules:
+        if not self.enabled and not self.rules:
             return
         try:
             self.build_schedule(force=True)
@@ -130,12 +126,14 @@ class ChaosConfig:
 
     def build_schedule(self, metrics=None, force: bool = False):
         """The FaultSchedule this section describes, or None when
-        disabled (``force`` builds regardless — validation). The port
-        has no fault schedules yet: building one raises."""
+        disabled (``force`` builds regardless — validation)."""
         if not self.enabled and not force:
             return None
-        raise NotImplementedError(
-            "chaos: fault schedules are not ported to cadence_tpu_torch yet"
+        from ..testing.faults import FaultSchedule
+        from ..utils.metrics import NOOP
+
+        return FaultSchedule.from_dicts(
+            self.rules, seed=self.seed, metrics=metrics or NOOP
         )
 
 

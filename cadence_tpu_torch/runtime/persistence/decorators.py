@@ -8,10 +8,10 @@ they wrap any manager object and intercept its public methods, so one
 implementation covers all five managers — the factory stacks them the
 same way the reference's persistence-factory does.
 
-A copy of the reference package's ``runtime/persistence/decorators.py``
-without the testing clients (fault injection, the effect witness, the
-sanitizer's probe): ``wrap_bundle`` raises when one of those is asked
-for.
+A copy of the reference package's ``runtime/persistence/decorators.py``.
+``wrap_bundle`` installs the testing clients (fault injection, the
+effect witness, the sanitizer's probe) in the reference's order when
+asked for, and none of them by default.
 """
 
 from __future__ import annotations
@@ -110,28 +110,61 @@ def wrap_bundle(bundle, metrics: Scope = NOOP,
     """Layer metrics (and optionally rate limits) over every manager in
     a PersistenceBundle, mirroring persistence-factory/factory.go.
 
-    ``faults``, ``effects`` and ``sanitize`` install the reference's
-    testing clients (fault injection, the effect witness, the
-    concurrency sanitizer's store probe). The port has none of them
-    yet, so any value but the default raises ``NotImplementedError``.
+    ``faults`` (a testing.faults.FaultSchedule) installs the fault-
+    injection client INNERMOST — under the metrics client, so injected
+    errors/latency are counted like real backend misbehavior, and under
+    the rate limiter, so an injected PersistenceBusyError surfaces to
+    the caller untranslated. Nothing is installed when it is None: the
+    default factory stack pays zero overhead for the chaos machinery.
+
+    ``effects=True`` installs the effect-witness recording client
+    (testing/effect_witness.py) BELOW the fault client — the witness
+    must see the real store calls, so an injected error that never
+    reached the backend is not recorded while a torn write that landed
+    is. Testing-only, like ``faults``.
+
+    ``sanitize=True`` installs the concurrency sanitizer's store probe
+    (testing/race_witness.SanitizerProbeClient) OUTERMOST — every
+    attempted store call made while the caller holds a tracked lock is
+    a RUNTIME-LOCK-BLOCKING observation, injected faults included (a
+    fault that stalls the caller under a lock is as real a stall as a
+    slow backend). Testing-only, like ``faults``/``effects``.
     """
     from .interfaces import PersistenceBundle
 
-    for name, value, default in (("faults", faults, None),
-                                 ("effects", effects, False),
-                                 ("sanitize", sanitize, False)):
-        if value != default:
-            raise NotImplementedError(
-                f"wrap_bundle({name}=...): the fault-injection and witness "
-                "clients are not ported yet"
-            )
+    fault_client = None
+    if faults is not None:
+        # lazy import: the runtime layer must not depend on the testing
+        # package unless fault injection is actually configured
+        from ...testing.faults import FaultInjectionClient
+
+        fault_client = FaultInjectionClient
+    effect_client = None
+    if effects:
+        from ...testing.effect_witness import (
+            EffectRecordingClient,
+        )
+
+        effect_client = EffectRecordingClient
+    sanitize_client = None
+    if sanitize:
+        from ...testing.race_witness import SanitizerProbeClient
+
+        sanitize_client = SanitizerProbeClient
 
     def deco(mgr, name):
         if mgr is None:
             return None
-        out = MetricsClient(mgr, metrics, manager=name)
+        out = mgr
+        if effect_client is not None:
+            out = effect_client(out, manager=name)
+        if fault_client is not None:
+            out = fault_client(out, faults, manager=name)
+        out = MetricsClient(out, metrics, manager=name)
         if max_qps is not None:
             out = RateLimitedClient(out, max_qps)
+        if sanitize_client is not None:
+            out = sanitize_client(out, manager=name)
         return out
 
     return PersistenceBundle(
@@ -141,5 +174,7 @@ def wrap_bundle(bundle, metrics: Scope = NOOP,
         task=deco(bundle.task, "task"),
         metadata=deco(bundle.metadata, "metadata"),
         visibility=deco(bundle.visibility, "visibility"),
+        # chaos rules on persistence.checkpoint exercise the replay
+        # plane's degrade-to-full-replay fallback
         checkpoint=deco(getattr(bundle, "checkpoint", None), "checkpoint"),
     )

@@ -8,9 +8,8 @@ checkpoints the ack level into shardInfo.
 
 A copy of the reference package's ``runtime/queues/base.py``, with the
 shared parallel executor's mode (``executor``, ``parallel_collect``,
-``parallel_run``). Fault injection (``make_fault_hook``) waits for its
-plane; ``no_faults`` stands where the reference builds a fault hook and
-refuses a schedule. A pump takes its deferred tasks back from the ack
+``parallel_run``) and the fault hook of its chaos runs
+(``make_fault_hook``). A pump takes its deferred tasks back from the ack
 manager (``take_retries``) instead of re-reading its held span from the
 ack level when one is due, in either mode. In executor mode the reshard
 fence also waits for the executor's waves: a batch collected before the
@@ -68,15 +67,6 @@ class ResumeCursor:
             self._key = None
 
 
-def no_faults(faults, site: str) -> None:
-    """The reference's ``faults=`` hook point on a queue or replication
-    plane (``make_fault_hook``). Fault injection waits for the port's
-    testing slice, so any value but None raises."""
-    if faults is not None:
-        raise NotImplementedError(
-            f"{site}: fault injection (faults=) is not ported yet")
-
-
 def read_due_timers(
     execution, shard_id: int, min_ts: int, max_ts: int, batch_size: int,
     resume_key, offer, max_pages: int = 16,
@@ -119,10 +109,24 @@ def sweep_ack(ack, log, name: str) -> None:
         log.exception(f"queue {name} ack sweep failed")
 
 
+def make_fault_hook(faults, site: str, shard_id=None):
+    """Chaos hook bound to one queue site and its shard, or None (the
+    zero-cost default) — shared by the active and standby processor
+    families so the site-naming convention can't drift between them.
+    ``shard_id`` makes shard-pinned FaultRules matchable at queue
+    sites (the replication hooks pass theirs at fire time)."""
+    if faults is None:
+        return None
+    from ...testing.faults import hook
+
+    return hook(faults, site, shard_id=shard_id)
+
+
 def run_task_attempts(
     process, task, key, ack, stopped, log, scope, name,
     retry_count: int = _TASK_RETRY_COUNT,
     exhausted_retry_delay_s: Optional[float] = None,
+    fault_hook=None,
 ) -> bool:
     """Shared queue-task attempt loop (active transfer/timer + standby
     twins — ONE copy, they had drifted). Returns True when the caller
@@ -137,7 +141,10 @@ def run_task_attempts(
     poisoned task retries at the defer cadence until an operator
     removes it (admin remove-task).
 
-    ``exhausted_retry_delay_s`` shrinks the park interval to test-scale
+    ``fault_hook`` (testing.faults: the bound ``fire`` of a
+    FaultSchedule site) runs inside each attempt, so an injected fault
+    exercises exactly this backoff/park machinery; ``exhausted_retry_
+    delay_s`` lets chaos runs shrink the park interval to test-scale
     (None = the production default)."""
     if exhausted_retry_delay_s is None:
         exhausted_retry_delay_s = _EXHAUSTED_RETRY_DELAY_S
@@ -146,6 +153,8 @@ def run_task_attempts(
         if stopped.is_set():
             return False
         try:
+            if fault_hook is not None:
+                fault_hook(str(getattr(task, "task_type", "")))
             # attribute persistence calls to this task for the effect
             # witness (testing/effect_witness.py); zero-cost when no
             # recorder is installed
@@ -225,11 +234,18 @@ class QueueProcessorBase:
         batch_size: int = 64,
         poll_interval_s: float = 0.05,
         metrics: Optional[Scope] = None,
+        faults=None,
         exhausted_retry_delay_s: Optional[float] = None,
+        shard_id: Optional[int] = None,
         executor=None,
     ) -> None:
         self.name = name
         self.ack = ack
+        # chaos hook: fired inside every task attempt under the site
+        # "queue.<name>"; None = zero-cost
+        self._fault_hook = make_fault_hook(
+            faults, f"queue.{name}", shard_id=shard_id
+        )
         self._exhausted_retry_delay_s = exhausted_retry_delay_s
         self._read_batch = read_batch
         self._process_task = process_task
@@ -390,6 +406,7 @@ class QueueProcessorBase:
             finished = run_task_attempts(
                 self._process_task, task, key, self.ack, self._stopped,
                 self._log, scope, self.name,
+                fault_hook=self._fault_hook,
                 exhausted_retry_delay_s=self._exhausted_retry_delay_s,
             )
         if not finished:
@@ -436,7 +453,7 @@ class QueueProcessorBase:
     def parallel_run(self, task, key) -> None:
         """Executor-mode execution of one collected task: the exact
         sequential attempt path (trace span, timing, effect scope,
-        retry/park, completion)."""
+        fault hook, retry/park, completion)."""
         self._run_task(task, key)
 
     def parallel_done(self) -> None:

@@ -28,9 +28,8 @@ standby cursor (``QueueAckManager.rewind``) when a domain fails over to
 this cluster — re-reading the span the active processor had skipped as
 passive (ref transferQueueProcessor.go failover processor).
 
-A copy of the reference package's ``runtime/queues/standby.py``. Fault
-injection waits for its plane: ``faults`` must be None. Both standby
-variants take the shared parallel executor (``executor``); the
+A copy of the reference package's ``runtime/queues/standby.py``. Both
+standby variants take the shared parallel executor (``executor``); the
 reference's transfer variant takes one and its timer variant does not,
 and the reference's service hands it to neither. The timer variant in
 executor mode reads its due window against the remote clock on the
@@ -56,7 +55,7 @@ from .base import (
     QueueProcessorBase,
     ResumeCursor,
     WaveGate,
-    no_faults,
+    make_fault_hook,
     read_due_timers,
     run_task_attempts,
     sweep_ack,
@@ -268,7 +267,6 @@ class TransferQueueStandbyProcessor(QueueProcessorBase):
         exhausted_retry_delay_s=None,
         executor=None,
     ) -> None:
-        no_faults(faults, "queue.transfer-standby")
         self.shard = shard
         self.engine = engine
         self.cluster = cluster
@@ -311,7 +309,9 @@ class TransferQueueStandbyProcessor(QueueProcessorBase):
             worker_count=worker_count,
             batch_size=batch_size,
             metrics=metrics,
+            faults=faults,
             exhausted_retry_delay_s=exhausted_retry_delay_s,
+            shard_id=shard.shard_id,
             executor=executor,
         )
 
@@ -468,7 +468,9 @@ class TimerQueueStandbyProcessor:
         self._on_handover = on_handover
         self._exhausted_retry_delay_s = exhausted_retry_delay_s
         self.name = f"timer-standby-{cluster}-{shard.shard_id}"
-        no_faults(faults, f"queue.{self.name}")
+        self._fault_hook = make_fault_hook(
+            faults, f"queue.{self.name}", shard_id=shard.shard_id
+        )
         self._log = get_logger(
             "cadence_tpu_torch.queue.timer-standby",
             shard=shard.shard_id, cluster=cluster,
@@ -680,6 +682,7 @@ class TimerQueueStandbyProcessor:
                 self._log, scope, self.name,
                 retry_count=self._TASK_RETRY_COUNT,
                 exhausted_retry_delay_s=self._exhausted_retry_delay_s,
+                fault_hook=self._fault_hook,
             )
         if not finished:
             return  # parked (deferred / exhausted-retry) or stopping

@@ -10,8 +10,7 @@ a LocalTimerGate armed with the earliest unfired deadline.
 A copy of the reference package's ``runtime/queues/timer.py``, with the
 shared parallel executor's mode (``executor``, ``parallel_collect``):
 a non-empty collect holds the reshard fence until the executor has run
-it (``parallel_done``), as ``QueueProcessorBase`` does. Fault injection
-waits for its plane.
+it (``parallel_done``), as ``QueueProcessorBase`` does.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from .allocator import DeferTask, TaskAllocator, defer_task
 from .base import (
     ResumeCursor,
     WaveGate,
+    make_fault_hook,
     read_due_timers,
     run_task_attempts,
     sweep_ack,
@@ -58,6 +58,7 @@ class TimerQueueProcessor:
         batch_size: int = 64,
         standby_clusters=(),
         metrics=None,
+        faults=None,
         exhausted_retry_delay_s=None,
         executor=None,
     ) -> None:
@@ -68,6 +69,9 @@ class TimerQueueProcessor:
         self.has_standby = bool(self.standby_clusters)
         self._exhausted_retry_delay_s = exhausted_retry_delay_s
         self.name = f"timer-{shard.shard_id}"
+        self._fault_hook = make_fault_hook(
+            faults, f"queue.{self.name}", shard_id=shard.shard_id
+        )
         self._log = get_logger("cadence_tpu_torch.queue.timer", shard=shard.shard_id)
         self._metrics = (metrics or NOOP).tagged(
             service="history_queue", queue=f"timer-{shard.shard_id}"
@@ -275,6 +279,7 @@ class TimerQueueProcessor:
                 self._log, scope, self.name,
                 retry_count=self._TASK_RETRY_COUNT,
                 exhausted_retry_delay_s=self._exhausted_retry_delay_s,
+                fault_hook=self._fault_hook,
             )
         if not finished:
             return  # parked (deferred / exhausted-retry) or stopping

@@ -7,8 +7,7 @@ activity tasks to matching, record visibility, close-execution fan-out
 child-workflow start.
 
 A copy of the reference package's ``runtime/queues/transfer.py``, with
-the shared parallel executor's mode (``executor``). Fault injection
-waits for its plane.
+the shared parallel executor's mode (``executor``).
 """
 
 from __future__ import annotations
@@ -77,6 +76,7 @@ class TransferQueueProcessor(QueueProcessorBase):
         batch_size: int = 64,
         standby_clusters=(),
         metrics=None,
+        faults=None,
         exhausted_retry_delay_s=None,
         executor=None,
     ) -> None:
@@ -124,7 +124,9 @@ class TransferQueueProcessor(QueueProcessorBase):
             worker_count=worker_count,
             batch_size=batch_size,
             metrics=metrics,
+            faults=faults,
             exhausted_retry_delay_s=exhausted_retry_delay_s,
+            shard_id=shard.shard_id,
             executor=executor,
         )
 

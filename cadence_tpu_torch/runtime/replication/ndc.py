@@ -20,11 +20,12 @@ snapshot installer's), so a batched drain's conflict rebuilds replay on
 the card through the FSM kernel; a fault of that replay raises out of
 ``apply_events_batch`` and ``apply_state_snapshot`` instead of degrading
 to the host route (a packer refusal, ``PackError``, still makes
-``apply_state_snapshot`` answer None); ``faults`` must be None until
-fault injection is ported. The batched drain pins each deferred
-workflow's context until its rebuild completes (see ``apply_events``):
-in the reference a cycle with more conflicts than the history cache
-holds finishes the evicted ones on the host.
+``apply_state_snapshot`` answer None). A fault rule fires at the
+reference's two hook points (``replication.ndc``: ``apply_events`` and
+``apply_state_snapshot``), before any state moves. The batched drain
+pins each deferred workflow's context until its rebuild completes (see
+``apply_events``): in the reference a cycle with more conflicts than the
+history cache holds finishes the evicted ones on the host.
 """
 
 from __future__ import annotations
@@ -82,12 +83,17 @@ class NDCHistoryReplicator:
         serving=None,
         device="cuda",
     ) -> None:
-        from ..queues.base import no_faults
-
-        no_faults(faults, "replication.ndc")
         self.shard = shard
         self.domains = domains
         self.cache = cache
+        # chaos hook: fired per applied task BEFORE any mutation, so an
+        # injected fault exercises the fetcher's re-fetch/re-apply path
+        # (at-least-once), never a half-applied batch
+        from ..queues.base import make_fault_hook
+
+        self._fault_hook = make_fault_hook(
+            faults, "replication.ndc", shard_id=shard.shard_id
+        )
         # where every rebuilder this replicator builds replays
         self.device = device
         self.rebuilder = rebuilder or StateRebuilder(
@@ -137,6 +143,8 @@ class NDCHistoryReplicator:
         one device scan (``apply_events_batch``)."""
         if not task.events:
             raise ValueError("replication task has no events")
+        if self._fault_hook is not None:
+            self._fault_hook("apply_events", self.shard.shard_id)
         # replication apply runs on the pull-pump thread; the same
         # workflow-keyed binding the queue pumps use joins this apply to
         # the workflow's sampled trace, if one exists (utils/tracing.py)
@@ -640,6 +648,8 @@ class NDCHistoryReplicator:
 
         if not ckpt.vh_items or ckpt.event_id < 1:
             return None
+        if self._fault_hook is not None:
+            self._fault_hook("apply_state_snapshot", self.shard.shard_id)
         snap_tip = int(ckpt.event_id)
         snap_version = int(ckpt.vh_items[-1][1])
         from ...runtime.queues.effects import task_effect_scope

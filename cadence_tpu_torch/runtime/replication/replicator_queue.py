@@ -11,8 +11,9 @@ A copy of the reference package's ``runtime/replication/replicator_queue.py``.
 Deviations: ``device`` (default ``"cuda"``) is the snapshot server's
 rebuild device, and a fault of the device replay while serving a
 snapshot raises instead of answering ``b""`` (only a packer refusal,
-``PackError``, still answers "no snapshot"); ``faults`` must be None
-until fault injection is ported.
+``PackError``, still answers "no snapshot"). A fault rule fires at the
+reference's hook points (``replication.replicator_queue``) before any
+ack or read.
 """
 
 from __future__ import annotations
@@ -43,11 +44,17 @@ class ReplicatorQueueProcessor:
         device="cuda",
     ) -> None:
         from ...utils.metrics import NOOP
-        from ..queues.base import no_faults
 
-        no_faults(faults, "replication.replicator_queue")
         self.shard = shard
         self.batch_size = batch_size
+        # chaos hook: fired per remote fetch BEFORE the ack/read, so an
+        # injected fault leaves the cluster ack level untouched and the
+        # remote's next poll simply retries (pull model is stateless)
+        from ..queues.base import make_fault_hook
+
+        self._fault_hook = make_fault_hook(
+            faults, "replication.replicator_queue", shard_id=shard.shard_id
+        )
         # the snapshot server's rebuild device
         self.device = device
         self._lock = threading.Lock()
@@ -179,6 +186,8 @@ class ReplicatorQueueProcessor:
         consumer shrink the page below the static ``batch_size`` — a
         throttled link pulls pages its budget can afford instead of
         timing out on one giant hydrated transfer."""
+        if self._fault_hook is not None:
+            self._fault_hook("get_replication_messages", self.shard.shard_id)
         self.ack(cluster, last_retrieved_id)
         page = self.batch_size
         if max_tasks is not None:
@@ -214,6 +223,8 @@ class ReplicatorQueueProcessor:
         (transport.py). A few hundred bytes describe a backlog whose
         hydrated events could be megabytes, which is the whole point on
         a constrained link."""
+        if self._fault_hook is not None:
+            self._fault_hook("get_replication_backlog", self.shard.shard_id)
         runs: Dict[tuple, dict] = {}
         read_from = last_retrieved_id
         max_id = last_retrieved_id
@@ -298,6 +309,10 @@ class ReplicatorQueueProcessor:
         from .rebuilder import RebuildRequest
         from .transport import encode_checkpoint_wire
 
+        if self._fault_hook is not None:
+            self._fault_hook(
+                "get_replication_checkpoint", self.shard.shard_id
+            )
         try:
             resp = self.shard.persistence.execution.get_workflow_execution(
                 self.shard.shard_id, domain_id, workflow_id, run_id

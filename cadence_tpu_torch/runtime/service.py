@@ -8,8 +8,10 @@ pushes, and a history client for cross-shard workflow calls.
 A copy of the reference package's ``runtime/service.py``: the shared
 parallel queue executor (``queue_executor``), the host's one reshard
 coordinator (``reshard_coordinator``), the capacity autopilot's hooks
-and the admin queue view (``describe_queue_states``). Fault injection
-waits for its plane (``faults`` must be None). Deviation: the executor
+and the admin queue view (``describe_queue_states``), with ``faults`` (a
+``testing.faults.FaultSchedule``) threaded into every queue processor
+and the replication planes as the reference threads it. Deviation: the
+executor
 also drives the standby transfer and timer processors, which the
 reference's service leaves on their own pumps.
 
@@ -68,9 +70,7 @@ class HistoryService:
         device="cuda",
     ) -> None:
         from ..utils.metrics import Scope
-        from .queues.base import no_faults
 
-        no_faults(faults, "history service")
         self.cluster_metadata = cluster_metadata
         self.persistence = persistence
         self.domains = domain_cache
@@ -86,9 +86,13 @@ class HistoryService:
         self.rebuild_chunk_size = rebuild_chunk_size
         # where the replication planes' rebuilders replay
         self.device = device
+        # chaos: a testing.faults.FaultSchedule threaded into every
+        # queue processor and the replication planes; None in any
+        # non-chaos deployment (no hook objects are even constructed).
         # queue_exhausted_retry_delay_s shrinks the park interval so a
         # park-then-drain run completes at test-scale (None = the
         # production default)
+        self.faults = faults
         self._queue_park_delay_s = queue_exhausted_retry_delay_s
         # checkpoint.CheckpointManager: every shard's state rebuilder
         # resumes replays from durable snapshots and writes fresh ones.
@@ -219,6 +223,7 @@ class HistoryService:
         engine.cluster_metadata = self.cluster_metadata
         engine.rebuild_chunk_size = self.rebuild_chunk_size
         engine.device = self.device
+        engine.faults = self.faults
         engine.checkpoints = self.checkpoints
         has_standby = bool(self.standby_clusters)
         transfer = TransferQueueProcessor(
@@ -226,6 +231,7 @@ class HistoryService:
             worker_count=self._queue_workers,
             standby_clusters=self.standby_clusters,
             metrics=self.metrics,
+            faults=self.faults,
             exhausted_retry_delay_s=self._queue_park_delay_s,
             executor=self.queue_executor,
         )
@@ -234,6 +240,7 @@ class HistoryService:
             worker_count=self._queue_workers,
             standby_clusters=self.standby_clusters,
             metrics=self.metrics,
+            faults=self.faults,
             exhausted_retry_delay_s=self._queue_park_delay_s,
             executor=self.queue_executor,
         )
@@ -257,12 +264,14 @@ class HistoryService:
             ts = TransferQueueStandbyProcessor(
                 shard, engine, cluster, local_cluster=local_cluster,
                 on_handover=transfer_handover, metrics=self.metrics,
+                faults=self.faults,
                 exhausted_retry_delay_s=self._queue_park_delay_s,
                 executor=self.queue_executor,
             )
             tm = TimerQueueStandbyProcessor(
                 shard, engine, cluster, local_cluster=local_cluster,
                 on_handover=timer_handover, metrics=self.metrics,
+                faults=self.faults,
                 exhausted_retry_delay_s=self._queue_park_delay_s,
                 executor=self.queue_executor,
             )

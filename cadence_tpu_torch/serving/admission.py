@@ -24,10 +24,10 @@ batching). Policy, per freed slot:
 
 Concurrency: the queue owns no lock. The owning ``ResidentEngine``
 passes its engine lock in as the guard and every verb is called with it
-held. The reference declares the parked table through its lock
-sanitizer (``utils/locks.make_guarded``), which the port does not have:
-here the table is the bare dict, and the guard is the caller's plain
-``threading.Lock``.
+held. The parked table is declared through the lock sanitizer
+(``utils/locks.make_guarded``, ``race_witness.GUARDED_FIELDS``), as in
+the reference, so a sanitized run checks that every access holds the
+engine lock.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import time as _time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import locks
 from ..utils.quotas import TokenBucket
 
 
@@ -114,7 +115,9 @@ class FairAdmissionQueue:
         self._clock = clock
         # domain → FIFO list of _Parked (head bids at refill); guarded
         # by ``guard``, the engine lock its caller holds
-        self._parked: Dict[str, List[_Parked]] = {}
+        self._parked: Dict[str, List[_Parked]] = locks.make_guarded(
+            {}, "FairAdmissionQueue._parked", guard
+        )
         # per-domain refill quota buckets: LRU-bounded like the
         # MultiStage limiter's domain table (churn of short-lived
         # domains cannot grow it). Buckets SURVIVE the backlog

@@ -66,14 +66,16 @@ the key map and the admission queue, and nothing blocking runs under it
 (packing, replays, checkpoint flushes and store reads all happen outside;
 lane state is snapshotted and committed under it in plain-python critical
 sections). Ticks serialize on ``_tick_lock``, and ``_lock`` is only ever
-taken inside it. The reference builds both through its lock-order
-sanitizer (``utils/locks``), which the port does not have.
+taken inside it. Both are built through the lock sanitizer's factory
+(``utils/locks.make_lock``), and the hot shared containers (the lane
+table, the key map, the admission queue's parked table) are declared
+through ``make_guarded`` and ``testing/race_witness.GUARDED_FIELDS``, as
+in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time as _time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -87,6 +89,7 @@ from ..ops.grid import round_scan_len
 from ..ops.pack import PackError, ResumeState, pack_lanes
 from ..ops.replay import replay_packed_lanes
 from ..ops.unpack import state_row_to_mutable_state, state_row_to_snapshot
+from ..utils import locks
 from ..utils.log import get_logger
 from ..utils.metrics import NOOP, Scope
 from .admission import AdmissionPolicy, FairAdmissionQueue
@@ -242,16 +245,20 @@ class ResidentEngine:
         self._log = get_logger("cadence_tpu_torch.serving")
         # -- guarded state (everything below is touched only under
         # _lock; blocking work never runs while it is held) -----------
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("ResidentEngine._lock")
         # tick serialization: the snapshot → compose → commit cycle of
         # one tick must be atomic with respect to other ticks, or two
         # concurrent ticks could compose disjoint pending Δs from the
         # same base row snapshot and the later commit would silently
         # discard the earlier Δ. Strict order: _tick_lock first, _lock
         # only inside it (no path holds _lock while acquiring this)
-        self._tick_lock = threading.Lock()
-        self._slots: List[Optional[_Lane]] = [None] * self.lanes
-        self._by_key: Dict[Tuple[str, str], int] = {}
+        self._tick_lock = locks.make_lock("ResidentEngine._tick_lock")
+        self._slots: List[Optional[_Lane]] = locks.make_guarded(
+            [None] * self.lanes, "ResidentEngine._slots", self._lock
+        )
+        self._by_key: Dict[Tuple[str, str], int] = locks.make_guarded(
+            {}, "ResidentEngine._by_key", self._lock
+        )
         # fair admission (serving/admission.py): weighted, deadline-aged
         # and per-domain-quota'd refill; its parked table is guarded by
         # this engine lock

@@ -15,9 +15,12 @@ workflows. ``queue_parallel`` drives the box's transfer, timer and
 standby queues through one ``ParallelQueueExecutor``. ``start_worker``
 (default True, as in the reference) starts the worker service on the
 system domain at ``start()`` and puts its archival trigger on every
-shard's close processor. The planes the port has not yet raise
-``NotImplementedError`` when asked for: fault injection (``faults``) and
-the concurrency sanitizer (``sanitize``).
+shard's close processor. ``faults`` (a ``testing.faults.FaultSchedule``)
+wraps every store of the box, the checkpoint store and the serving
+plane's history reads included, and is threaded into the history
+service's queues and replication planes; ``sanitize`` installs the
+concurrency sanitizer's store probe (pair it with a ``RaceWitness``
+installed before the box is built).
 """
 
 from __future__ import annotations
@@ -42,16 +45,6 @@ from ..worker.archiver import ArchivalClient
 from ..worker.service import WorkerService
 
 
-def _refuse_unported(faults, sanitize) -> None:
-    for name, asked in (("faults", faults is not None),
-                        ("sanitize", sanitize)):
-        if asked:
-            raise NotImplementedError(
-                f"Onebox({name}=...): that plane is not ported to "
-                "cadence_tpu_torch yet"
-            )
-
-
 class Onebox:
     def __init__(
         self,
@@ -71,18 +64,26 @@ class Onebox:
         queue_parallel: int = 0,
         device="cuda",
     ) -> None:
-        _refuse_unported(faults, sanitize)
+        self.faults = faults
         self.persistence = persistence or create_memory_bundle()
         # every Onebox carries a real metrics scope and a metrics-
         # wrapped bundle: per-store histogram latencies and the
         # persistence hop of request traces are observable in every
-        # integration test (the MetricsClient's untraced cost is a
-        # perf_counter pair per call)
+        # integration test, not just chaos runs (the MetricsClient's
+        # untraced cost is a perf_counter pair per call). Fault
+        # injection (chaos mode) additionally installs the fault client
+        # innermost; the default path installs no fault machinery.
         from ..runtime.persistence.decorators import wrap_bundle
         from ..utils.metrics import Scope
 
+        # sanitize: the concurrency sanitizer's store probe
+        # (RUNTIME-LOCK-BLOCKING) — pair with a RaceWitness installed
+        # via utils/locks.wrap_locks BEFORE constructing the box
         self.metrics = Scope()
-        self.persistence = wrap_bundle(self.persistence, metrics=self.metrics)
+        self.persistence = wrap_bundle(
+            self.persistence, metrics=self.metrics, faults=faults,
+            sanitize=sanitize,
+        )
         self.bus = MessageBus()
         self.cluster_metadata = cluster_metadata or ClusterMetadata()
         self.domain_handler = DomainHandler(
@@ -133,6 +134,7 @@ class Onebox:
             cluster_metadata=self.cluster_metadata,
             queue_worker_count=queue_worker_count,
             metrics=self.metrics,
+            faults=faults,
             time_source=time_source,
             checkpoints=self.checkpoints,
             serving=self.serving,

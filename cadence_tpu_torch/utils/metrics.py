@@ -24,10 +24,11 @@ reference module is not ported.
 from __future__ import annotations
 
 import math
-import threading
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Tuple
+
+from .locks import make_guarded, make_lock
 
 TagTuple = Tuple[Tuple[str, str], ...]
 
@@ -111,8 +112,8 @@ class Histogram:
 
 
 class TimerStats(tuple):
-    """``(count, total_s, max_s)`` with ``p50``/``p99``/``avg``
-    (seconds) and ``quantile(q)`` as attributes."""
+    """``(count, total_s, max_s)`` with ``max_s``, ``p50``/``p95``/
+    ``p99``/``avg`` (seconds) and ``quantile(q)`` as attributes."""
 
     def __new__(cls, hist: Optional[Histogram] = None):
         h = hist if hist is not None else Histogram()
@@ -129,6 +130,10 @@ class TimerStats(tuple):
         return self[1]
 
     @property
+    def max_s(self) -> float:
+        return self[2]
+
+    @property
     def avg(self) -> float:
         return self[1] / self[0] if self[0] else 0.0
 
@@ -140,6 +145,10 @@ class TimerStats(tuple):
         return self._hist.quantile(0.50)
 
     @property
+    def p95(self) -> float:
+        return self._hist.quantile(0.95)
+
+    @property
     def p99(self) -> float:
         return self._hist.quantile(0.99)
 
@@ -148,12 +157,18 @@ class Registry:
     """Thread-safe store of counters and timers, cardinality-capped."""
 
     def __init__(self, max_series: int = _DEFAULT_MAX_SERIES) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("Registry._lock")
         self._max_series = max(int(max_series), 1)
         self._series = 0
-        self._counters: Dict[Tuple[str, TagTuple], int] = defaultdict(int)
-        self._timers: Dict[Tuple[str, TagTuple], Histogram] = {}
-        self._gauges: Dict[Tuple[str, TagTuple], float] = {}
+        self._counters: Dict[Tuple[str, TagTuple], int] = make_guarded(
+            defaultdict(int), "Registry._counters", self._lock
+        )
+        self._gauges: Dict[Tuple[str, TagTuple], float] = make_guarded(
+            {}, "Registry._gauges", self._lock
+        )
+        self._timers: Dict[Tuple[str, TagTuple], Histogram] = make_guarded(
+            {}, "Registry._timers", self._lock
+        )
 
     def _admit(self, table, name: str, tags: TagTuple):
         """Series admission under the lock: an existing key passes; a

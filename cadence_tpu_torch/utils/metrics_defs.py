@@ -18,8 +18,9 @@ host runtime: the frontend, history and matching operation lists, the
 instrumentation, and the name catalogs of the planes ported so far:
 replication and failover (``REPLICATION_METRICS``, ``FAILOVER_METRICS``),
 the parallel queue executor (``PARQUEUE_METRICS``), resharding
-(``RESHARD_METRICS``), the capacity autopilot (``AUTOPILOT_METRICS``) and
-the tracing plane's self-telemetry (``TELEMETRY_METRICS``).
+(``RESHARD_METRICS``), the capacity autopilot (``AUTOPILOT_METRICS``),
+fault injection (``FAULT_METRICS``) and the tracing plane's
+self-telemetry (``TELEMETRY_METRICS``).
 The reference's other ``*_METRICS`` catalogs wait for their planes.
 """
 
@@ -174,6 +175,14 @@ PARQUEUE_METRICS = (
     "parqueue_matrix_stale", "parqueue_degraded",
     "parqueue_stale_skipped",
 )
+
+# chaos/fault-injection plane (testing/faults.py): every injected fault
+# increments faults_injected under tags (layer=fault_injection,
+# site=..., action=error|latency|torn_write), so a chaos run's blast
+# radius is observable in the same registry as the errors it causes —
+# the per-manager `<api>.errors.<ExcType>` counters from the metrics
+# decorator count injected and real backend failures identically.
+FAULT_METRICS = ("faults_injected",)
 
 # elastic resharding (runtime/resharding.py), emitted by the coordinator
 # under tags (layer=resharding): reshard_epoch gauges the committed

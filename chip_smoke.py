@@ -209,7 +209,29 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     process; 256 workflows through it, a signal each, a ``serving_read``
     each over the child's history endpoint against the host replay, the
     child ended by SIGTERM with exit code 0;
-17. the refresh's line (``device_passes``: torch ops, no kernel of its
+17. ``chaos``: fault injection and the witnesses (``cadence_tpu_torch/
+    testing/faults.py``, ``effect_witness.py``, ``race_witness.py``,
+    ``utils/locks.py``, ``analysis/lock_order.py``), the reference chaos
+    suite's shapes at card size: (a) ``chaos_differential``, 256
+    chained-doubler workflows on a clean Onebox twin (4 shards, frozen
+    clock, pinned poll nonce, serving and checkpoints) and on one under
+    the suite's write-fault schedule (seed 1234) with the effect recorder
+    on: every history byte-identical across the arms, every rule fired,
+    a ``serving_read`` of each workflow and one ``rebuild_many`` of all
+    256 on the card against the host replay, no effect outside its
+    footprint; (b) ``checkpoint_serving_chaos``, 256 retry_deep runs
+    rebuilt twice (a prefix pass, a warm pass after the tails) through a
+    checkpoint store that errs on 15% of its calls and tears 25% of its
+    writes, against a fault-free rebuilder and the host, then a
+    1,024-lane ``ResidentEngine`` seated, ticked, drained and re-admitted
+    with 25% of its checkpoint calls failing and then with every flush
+    write failing, its reads against the fault-free engine's; (c)
+    ``sanitized_onebox``, the sanitizer's acceptance drive on the card
+    (64 workflows under the race witness, a cold and a resident read
+    each), ``check_race_witness`` against the port's static lock graph,
+    every declared guarded field built, a baselined entry observed, the
+    engine lock's held-time p99. ``host_fallbacks`` stays 0 throughout;
+18. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -5960,6 +5982,603 @@ def phase_entry_host_and_cli(torch, np, RC, smi, fe_host_ms, tmp, yaml,
     return dict(routes.counts), stop_s
 
 
+# -- 17. chaos: fault injection and the witnesses on the card ---------------
+
+CHAOS_SEED, CHAOS_SHARDS, CHAOS_WORKFLOWS = 1234, 4, 256
+CHAOS_WORKERS, CHAOS_WAIT_S = 8, 120.0
+CHAOS_DOMAIN, CHAOS_TL = "chaos-dom", "chaos-tl"
+CKPT_CHAOS_N = 256
+FLUSH_CHAOS_LANES = 1024
+SAN_WORKFLOWS, SAN_DOMAIN, SAN_TL = 64, "san-dom", "san-tl"
+
+
+def chaos_counted(RC, counts, route, fn):
+    """``fn()`` with the FSM launches made meanwhile added to
+    ``counts[route]`` (nothing else launches while a part of phase 17
+    runs one)."""
+    start = RC.replay_rows.launches
+    try:
+        return fn()
+    finally:
+        counts[route] = counts.get(route, 0) + (
+            RC.replay_rows.launches - start)
+
+
+def chaos_doubler(ctx, input):
+    """The reference chaos suite's workflow: two chained activities."""
+    a = yield ctx.schedule_activity("double", input)
+    b = yield ctx.schedule_activity("double", a)
+    return b
+
+
+def chaos_write_faults(seed):
+    """The reference chaos suite's write-fault schedule: conflicts on
+    15% of the main execution writes, errors on 20% of the transfer-task
+    completions, torn writes on 20% of the shard writes."""
+    from cadence_tpu_torch.testing.faults import FaultRule, FaultSchedule
+
+    return FaultSchedule(seed=seed, rules=[
+        FaultRule(site="persistence.execution",
+                  method="update_workflow_execution",
+                  probability=0.15, error="ConditionFailedError"),
+        FaultRule(site="persistence.execution",
+                  method="complete_transfer_task",
+                  probability=0.2, error="PersistenceError"),
+        FaultRule(site="persistence.shard", method="update_shard",
+                  probability=0.2, action="torn_write",
+                  error="TimeoutError"),
+    ])
+
+
+def chaos_box(device, faults=None, effects=False):
+    """A Onebox twin as the chaos suite's harness builds it: a frozen
+    clock, the poll nonce pinned, serving and checkpoints on.
+    ``effects`` puts the effect recorder on the store, below the fault
+    client the box installs."""
+    from cadence_tpu_torch.runtime.persistence.decorators import wrap_bundle
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        create_memory_bundle)
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.utils.clock import FakeTimeSource
+
+    store = create_memory_bundle()
+    if effects:
+        store = wrap_bundle(store, effects=True)
+    box = Onebox(
+        num_shards=CHAOS_SHARDS, persistence=store, faults=faults,
+        start_worker=False, time_source=FakeTimeSource(),
+        poll_request_id_fn=lambda info: (
+            f"rid-{info.workflow_id}-{info.schedule_id}"),
+        checkpoints=True, serving=True, device=device).start()
+    box.domain_handler.register_domain(CHAOS_DOMAIN)
+    return box
+
+
+def chaos_drive(box, wids):
+    """Every workflow started, then each waited on until it closes, with
+    ``CHAOS_WORKERS`` SDK workers of one identity; returns the runs and
+    each history's canonical JSON."""
+    from cadence_tpu_torch.runtime.api import StartWorkflowRequest
+    from cadence_tpu_torch.worker import Worker
+
+    workers = []
+    for _ in range(CHAOS_WORKERS):
+        w = Worker(box.frontend, CHAOS_DOMAIN, CHAOS_TL,
+                   identity="chaos-worker", sticky=False)
+        w.register_workflow("chaos-wf", chaos_doubler)
+        w.register_activity("double", lambda inp: inp * 2)
+        w.start()
+        workers.append(w)
+    try:
+        runs = {wid: box.frontend.start_workflow_execution(
+            StartWorkflowRequest(
+                domain=CHAOS_DOMAIN, workflow_id=wid,
+                workflow_type="chaos-wf", task_list=CHAOS_TL, input=b"x",
+                request_id=f"req-{wid}",
+                execution_start_to_close_timeout_seconds=60))
+            for wid in wids}
+        deadline = time.monotonic() + CHAOS_WAIT_S
+        for wid in wids:
+            while box.frontend.describe_workflow_execution(
+                    CHAOS_DOMAIN, wid, runs[wid]).is_running:
+                check(time.monotonic() < deadline,
+                      f"(a) {wid} still running after {CHAOS_WAIT_S} s")
+                time.sleep(0.02)
+    finally:
+        # every poller told first, so the long polls end together
+        for w in workers:
+            w.decisions._stop.set()
+            w.activities._stop.set()
+        for w in workers:
+            w.stop()
+    hist = {}
+    for wid in wids:
+        events, _ = box.frontend.get_workflow_execution_history(
+            CHAOS_DOMAIN, wid, runs[wid])
+        hist[wid] = json.dumps([e.to_dict() for e in events],
+                               sort_keys=True, default=repr)
+    return runs, hist
+
+
+def chaos_requests(box, runs):
+    """A rebuild request per run, its branch token read from the store."""
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        RebuildRequest)
+
+    domain_id = box.domains.get_by_name(CHAOS_DOMAIN).info.id
+    ex = box.persistence.execution
+    reqs = []
+    for wf, run in runs.items():
+        snap = ex.get_workflow_execution(
+            box.history.controller.shard_for(wf), domain_id, wf,
+            run).snapshot
+        reqs.append(RebuildRequest(domain_id, wf, run,
+                                   snap["execution_info"]["branch_token"]))
+    return domain_id, reqs
+
+
+def phase_chaos_differential(RC, unpack, smi, counts, device):
+    """(a) the same 256 workflows on a clean twin and on one under the
+    write-fault storm with the effect recorder on; the faulted twin's
+    serving reads and one ``rebuild_many`` of every run on the card."""
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        StateRebuilder)
+    from cadence_tpu_torch.testing.effect_witness import (
+        EffectRecorder, check_witness)
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    wids = [f"chaos-wf-{i}" for i in range(CHAOS_WORKFLOWS)]
+    walls = {}
+    t0 = time.perf_counter()
+    box = chaos_box(device)
+    try:
+        _, clean = chaos_drive(box, wids)
+    finally:
+        box.stop()
+    walls["clean"] = time.perf_counter() - t0
+
+    sched = chaos_write_faults(CHAOS_SEED)
+    rec = EffectRecorder().install()
+    try:
+        t0 = time.perf_counter()
+        box = chaos_box(device, faults=sched, effects=True)
+        try:
+            runs, faulted = chaos_drive(box, wids)
+            walls["faulted"] = time.perf_counter() - t0
+            domain_id, reqs = chaos_requests(box, runs)
+            host_rb = StateRebuilder(box.persistence.history, device="cpu")
+            t0 = time.perf_counter()
+            oracle = [host_rb.rebuild(r) for r in reqs]
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reads = chaos_counted(RC, counts, "chaos_serving_read", lambda: [
+                box.history.serving_read(domain_id, r.workflow_id, r.run_id)
+                for r in reqs])
+            reads_s = time.perf_counter() - t0
+            scope = Scope()
+            t0 = time.perf_counter()
+            many = chaos_counted(
+                RC, counts, "chaos_rebuild_many",
+                lambda: StateRebuilder(box.persistence.history, metrics=scope,
+                                       device=device).rebuild_many(reqs))
+            many_s = time.perf_counter() - t0
+            box_fallbacks = box.metrics.registry.counter_value(
+                "host_fallbacks")
+        finally:
+            box.stop()
+    finally:
+        rec.uninstall()
+    diverged = [w for w in wids if clean[w] != faulted[w]]
+    read_mism = sum(
+        g is None or g.snapshot != unpack.mutable_state_to_snapshot(o[0])
+        for g, o in zip(reads, oracle))
+    many_mism = sum(rebuild_key(unpack, g) != rebuild_key(unpack, o)
+                    for g, o in zip(many, oracle))
+    fallbacks = scope.registry.counter_value("host_fallbacks") + \
+        box_fallbacks
+    violations = check_witness(rec)
+    snap = rec.snapshot()
+    faults = sched.snapshot()
+    rec_out = {
+        "phase": "chaos", "part": "chaos_differential",
+        "workflows": CHAOS_WORKFLOWS, "shards": CHAOS_SHARDS,
+        "sdk_workers": CHAOS_WORKERS, "seed": CHAOS_SEED,
+        "wall_s": walls, "faults_by_rule": faults,
+        "faults_injected": sched.injected_total(),
+        "histories_diverged": len(diverged),
+        "serving_reads": len(reads), "serving_read_s": reads_s,
+        "serving_read_mismatches": read_mism,
+        "rebuild_many": {"runs": len(reqs), "wall_s": many_s,
+                         "mismatches": many_mism},
+        "host_oracle_s": host_s, "host_fallbacks": fallbacks,
+        "effect_witness": {"task_types": len(snap),
+                           "violations": violations},
+        "launches": {k: counts.get(k, 0) for k in (
+            "chaos_serving_read", "chaos_rebuild_many")},
+        "nvidia_smi": smi,
+    }
+    check(not diverged, f"(a) {len(diverged)} histories differ across the "
+          f"arms, first {diverged[:3]}")
+    check(all(f["injected"] > 0 for f in faults),
+          f"(a) a rule of the storm never fired: {faults}")
+    check(read_mism == 0, f"(a) {read_mism} serving reads differ from the "
+          "host replay")
+    check(many_mism == 0, f"(a) {many_mism} rebuilt runs differ from the "
+          "host replay")
+    check(fallbacks == 0, f"(a) {fallbacks} host fallbacks")
+    check(("transfer", "CloseExecution") in snap and not violations,
+          f"(a) effect witness: {violations or 'no close task recorded'}")
+    check(counts["chaos_serving_read"] > 0
+          and counts["chaos_rebuild_many"] > 0,
+          f"(a) launches {rec_out['launches']}")
+    return rec_out
+
+
+def chaos_faulted_store(sched):
+    """A memory checkpoint store behind the fault client, at the site
+    ``wrap_bundle`` names it (``persistence.checkpoint``)."""
+    from cadence_tpu_torch.checkpoint import MemoryCheckpointStore
+    from cadence_tpu_torch.testing.faults import FaultInjectionClient
+
+    raw = MemoryCheckpointStore()
+    return raw, FaultInjectionClient(raw, sched, manager="checkpoint")
+
+
+def phase_chaos_checkpoint(RC, unpack, counts, device):
+    """(b1) 256 retry_deep runs rebuilt on the card twice, a prefix pass
+    and a warm pass after the tails land, by a rebuilder whose checkpoint
+    store faults (errors on every verb, torn writes on the puts) and by a
+    fault-free one; every state against the other's and the host's."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, CheckpointPolicy, MemoryCheckpointStore)
+    from cadence_tpu_torch.runtime.replication.rebuilder import (
+        StateRebuilder)
+    from cadence_tpu_torch.testing.faults import FaultRule, FaultSchedule
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    c = warm_cohort(n=CKPT_CHAOS_N)
+    sched = FaultSchedule(seed=CHAOS_SEED, rules=[
+        FaultRule(site="persistence.checkpoint", method="put_checkpoint",
+                  probability=0.25, action="torn_write",
+                  error="TimeoutError"),
+        FaultRule(site="persistence.checkpoint", probability=0.15,
+                  error="PersistenceError"),
+    ])
+    raw, faulted_store = chaos_faulted_store(sched)
+    clean_store = MemoryCheckpointStore()
+    scopes = {"clean": Scope(), "faulted": Scope()}
+    rbs = {name: StateRebuilder(
+        c["hist"], lane_len=REBUILD_LANE_LEN, metrics=scopes[name],
+        checkpoints=CheckpointManager(store, CheckpointPolicy(
+            every_events=1, keep_last=1)), device=device)
+        for name, store in (("clean", clean_store),
+                            ("faulted", faulted_store))}
+    out, walls = {}, {}
+    for p in ("prefix", "warm"):
+        if p == "warm":
+            append_tails(c)
+        for name, rb in rbs.items():
+            t0 = time.perf_counter()
+            res = chaos_counted(RC, counts, "chaos_checkpoint_rebuild",
+                                 lambda: rb.rebuild_many(c["reqs"]))
+            walls[f"{p}_{name}"] = time.perf_counter() - t0
+            out[(p, name)] = [rebuild_key(unpack, g) for g in res]
+    host_rb = StateRebuilder(c["hist"], device="cpu")
+    t0 = time.perf_counter()
+    host = [rebuild_key(unpack, host_rb.rebuild(r)) for r in c["reqs"]]
+    host_s = time.perf_counter() - t0
+    mism = {
+        "faulted_vs_clean": sum(
+            a != b for p in ("prefix", "warm")
+            for a, b in zip(out[(p, "faulted")], out[(p, "clean")])),
+        "warm_vs_host": sum(a != b for name in ("clean", "faulted")
+                            for a, b in zip(out[("warm", name)], host)),
+    }
+    reg = {n: s.registry for n, s in scopes.items()}
+    fallbacks = sum(r.counter_value("host_fallbacks") for r in reg.values())
+    rec = {
+        "runs": CKPT_CHAOS_N, "events": c["total_events"],
+        "faults_by_rule": sched.snapshot(),
+        "faults_injected": sched.injected_total(),
+        "landed_checkpoints": raw.count_checkpoints(),
+        "checkpoint_hit": {n: r.counter_value("checkpoint_hit")
+                           for n, r in reg.items()},
+        "events_replayed_saved": {
+            n: r.counter_value("events_replayed_saved")
+            for n, r in reg.items()},
+        "wall_s": walls, "host_oracle_s": host_s, "mismatches": mism,
+        "host_fallbacks": fallbacks,
+    }
+    check(all(f["injected"] > 0 and f["injected"] >= 0.1 * f["matched"]
+              for f in rec["faults_by_rule"]),
+          f"(b1) the checkpoint storm under 10%: {rec['faults_by_rule']}")
+    check(not any(mism.values()), f"(b1) rebuilt states differ: {mism}")
+    check(fallbacks == 0, f"(b1) {fallbacks} host fallbacks")
+    check(counts.get("chaos_checkpoint_rebuild", 0) > 0,
+          "(b1) no FSM launch")
+    return rec
+
+
+def flush_cohort(bundle, caps):
+    """``FLUSH_CHAOS_LANES`` open fuzzed histories in ``bundle``'s store,
+    seeded as the reference's serving chaos suite seeds its four."""
+    from cadence_tpu_torch.testing.event_generator import HistoryFuzzer
+
+    out = []
+    for i in range(FLUSH_CHAOS_LANES):
+        batches = HistoryFuzzer(seed=CHAOS_SEED + 7 * i, caps=caps).generate(
+            target_events=30 + 10 * (i % 3), close=False)
+        branch = bundle.history.new_history_branch(tree_id=f"serve-run-{i}")
+        for txn, b in enumerate(batches, 1):
+            bundle.history.append_history_nodes(branch, b,
+                                                transaction_id=txn)
+        out.append((f"serve-wf-{i}", f"serve-run-{i}",
+                    branch.to_json().encode(), batches))
+    return out
+
+
+def flush_drive(RC, counts, engine, seeded):
+    """The reference's serving chaos choreography at engine size: seat
+    every prefix in one ``admit_many``, append each Δ suffix in two
+    appends, one tick, drain (every flush: the storm fires here),
+    re-admit every run in one ``admit_many`` (the checkpoint consult
+    resumes or cold-replays), and read each lane; returns the
+    canonical snapshot of each read and the readmit's FSM launches."""
+    def seat():
+        tickets = engine.admit_many([
+            dict(domain_id="dom", workflow_id=wf, run_id=run,
+                 branch_token=tok, batches=b[:max(1, len(b) // 2)])
+            for wf, run, tok, b in seeded])
+        check(all(t is not None for t in tickets.values()),
+              "(b2) a seat failed")
+        for wf, run, _, b in seeded:
+            rest = b[max(1, len(b) // 2):]
+            per = max(1, len(rest) // 2) if rest else 1
+            for j in range(0, len(rest), per):
+                check(engine.append(tickets[(wf, run)], rest[j:j + per]),
+                      f"(b2) an append to {wf} was refused")
+        engine.tick()
+
+    chaos_counted(RC, counts, "chaos_flush_engine", seat)
+    drained = engine.drain()
+    check(engine.occupancy() == 0.0, "(b2) the drain left lanes seated")
+    before = RC.replay_rows.launches
+    t0 = time.perf_counter()
+    tickets = chaos_counted(RC, counts, "chaos_flush_engine",
+                             lambda: engine.admit_many([
+                                 dict(domain_id="dom", workflow_id=wf,
+                                      run_id=run, branch_token=tok,
+                                      batches=b)
+                                 for wf, run, tok, b in seeded]))
+    readmit_s = time.perf_counter() - t0
+    readmit_launches = RC.replay_rows.launches - before
+    check(all(t is not None for t in tickets.values()),
+          "(b2) a re-admission failed")
+    rows = {}
+    for wf, run, _, _ in seeded:
+        got = engine.read(wf, run)
+        check(got is not None and got.resident,
+              f"(b2) {wf} is not resident after its re-admission")
+        rows[(wf, run)] = got.snapshot
+    return rows, drained, readmit_launches, readmit_s
+
+
+def phase_chaos_flush(RC, counts, device):
+    """(b2) a 1,024-lane resident engine three times on the same
+    histories: fault-free, with 25% of its checkpoint calls failing, and
+    with every flush write failing; the reads of the faulted engines
+    against the fault-free one's."""
+    from cadence_tpu_torch.checkpoint import (
+        CheckpointManager, CheckpointPolicy)
+    from cadence_tpu_torch.ops import schema as S
+    from cadence_tpu_torch.runtime.persistence.decorators import wrap_bundle
+    from cadence_tpu_torch.runtime.persistence.memory import (
+        create_memory_bundle)
+    from cadence_tpu_torch.serving import ResidentEngine
+    from cadence_tpu_torch.testing.faults import FaultRule, FaultSchedule
+    from cadence_tpu_torch.utils.metrics import Scope
+
+    caps = S.Capacities(max_events=256)
+    arms = {
+        "baseline": None,
+        "storm": FaultSchedule(seed=CHAOS_SEED, rules=[FaultRule(
+            site="persistence.checkpoint", probability=0.25,
+            error="PersistenceError")]),
+        "total": FaultSchedule(seed=CHAOS_SEED, rules=[FaultRule(
+            site="persistence.checkpoint", method="put_checkpoint",
+            probability=1.0, error="PersistenceError")]),
+    }
+    rows, rec = {}, {}
+    for name, sched in arms.items():
+        raw = create_memory_bundle()
+        bundle = wrap_bundle(raw, metrics=Scope(), faults=sched)
+        t0 = time.perf_counter()
+        seeded = flush_cohort(bundle, caps)
+        seed_s = time.perf_counter() - t0
+        scope = Scope()
+        engine = ResidentEngine(
+            lanes=FLUSH_CHAOS_LANES, caps=caps,
+            checkpoints=CheckpointManager(bundle.checkpoint, CheckpointPolicy(
+                every_events=1, keep_last=4)),
+            history=bundle.history, metrics=scope, device=device)
+        t0 = time.perf_counter()
+        rows[name], drained, readmit_launches, readmit_s = flush_drive(
+            RC, counts, engine, seeded)
+        reg = scope.registry
+        rec[name] = {
+            "seed_s": seed_s, "drive_s": time.perf_counter() - t0,
+            "drain": drained, "readmit_s": readmit_s,
+            "readmit_launches": readmit_launches,
+            "stored_checkpoints": raw.checkpoint.count_checkpoints(),
+            **serve_counters(reg, "serving_flush_failures",
+                             "serving_admit_resume", "serving_admit_cold"),
+            "faults_by_rule": sched.snapshot() if sched else [],
+        }
+    mism = {name: sum(rows[name][k] != rows["baseline"][k]
+                      for k in rows["baseline"])
+            for name in ("storm", "total")}
+    storm, total = rec["storm"], rec["total"]
+    rec["read_mismatches_vs_baseline"] = mism
+    rec["lanes"] = FLUSH_CHAOS_LANES
+    check(not any(mism.values()), f"(b2) reads differ from the fault-free "
+          f"engine's: {mism}")
+    check(storm["faults_by_rule"][0]["injected"]
+          >= 0.1 * storm["faults_by_rule"][0]["matched"] > 0,
+          f"(b2) the flush storm under 10%: {storm['faults_by_rule']}")
+    check(total["serving_admit_resume"] == 0
+          and total["stored_checkpoints"] == 0
+          and total["serving_admit_cold"] == 2 * FLUSH_CHAOS_LANES
+          and total["readmit_launches"] > 0,
+          f"(b2) the total flush failure did not cold-readmit on the "
+          f"card: {total}")
+    check(rec["baseline"]["serving_admit_resume"] == FLUSH_CHAOS_LANES,
+          f"(b2) the fault-free readmit did not resume: {rec['baseline']}")
+    return rec
+
+
+def phase_chaos_sanitized(RC, counts, device):
+    """(c) the reference's sanitizer acceptance drive on the card: a
+    Onebox twin built under the race witness (sanitize, checkpoints,
+    serving, the autopilot parked, a 2-wide queue executor), 64
+    workflows, a cold and a resident serving read of each, then the
+    gate against the port's static lock graph."""
+    from cadence_tpu_torch.analysis import lock_order
+    from cadence_tpu_torch.config.static import AutopilotConfig
+    from cadence_tpu_torch.runtime.api import StartWorkflowRequest
+    from cadence_tpu_torch.testing.onebox import Onebox
+    from cadence_tpu_torch.testing.race_witness import (
+        GUARDED_FIELDS, RaceWitness, check_race_witness)
+    from cadence_tpu_torch.worker import Worker
+
+    class HeldTimes(RaceWitness):
+        """The witness, keeping every hold of the engine's locks."""
+
+        def __init__(self):
+            super().__init__()
+            self.engine_holds = {}
+
+        def on_release(self, lock, entry, held_s):
+            super().on_release(lock, entry, held_s)
+            if ":ResidentEngine." in lock.name:
+                self.engine_holds.setdefault(lock.name, []).append(held_s)
+
+    t0 = time.perf_counter()
+    w = HeldTimes().install()
+    try:
+        box = Onebox(
+            num_shards=2, sanitize=True, checkpoints=True, serving=True,
+            autopilot=AutopilotConfig(enabled=True, epoch_interval_s=3600),
+            queue_parallel=2, device=device).start()
+        try:
+            box.domain_handler.register_domain(SAN_DOMAIN)
+            wkr = Worker(box.frontend, SAN_DOMAIN, SAN_TL,
+                         identity="san-worker")
+
+            def wf(ctx, input):
+                a = yield ctx.schedule_activity("double", input)
+                return a
+
+            wkr.register_workflow("san-wf", wf)
+            wkr.register_activity("double", lambda i: i * 2)
+            wkr.start()
+            try:
+                runs = {}
+                for i in range(SAN_WORKFLOWS):
+                    runs[f"san-{i}"] = box.frontend.start_workflow_execution(
+                        StartWorkflowRequest(
+                            domain=SAN_DOMAIN, workflow_id=f"san-{i}",
+                            workflow_type="san-wf", task_list=SAN_TL,
+                            input=b"x", request_id=f"san-req-{i}",
+                            execution_start_to_close_timeout_seconds=60))
+                deadline = time.monotonic() + CHAOS_WAIT_S
+                for wid, run in runs.items():
+                    while box.frontend.describe_workflow_execution(
+                            SAN_DOMAIN, wid, run).is_running:
+                        check(time.monotonic() < deadline,
+                              f"(c) {wid} did not complete")
+                        time.sleep(0.02)
+                dom_id = box.domains.get_by_name(SAN_DOMAIN).info.id
+
+                def reads():
+                    return [box.history.serving_read(dom_id, wid, run)
+                            for _ in range(2) for wid, run in runs.items()]
+                got = chaos_counted(RC, counts, "chaos_sanitized", reads)
+            finally:
+                wkr.stop()
+        finally:
+            box.stop()
+    finally:
+        w.uninstall()
+    drive_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = lock_order.build_graph(str(ROOT))
+    unwaived = check_race_witness(w, str(ROOT), graph=graph)
+    registered = {n.rsplit(":", 1)[-1] for n in w.registered_guard_fields()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_locks_") as tmp:
+        wpath = os.path.join(tmp, "lock_witness.json")
+        w.save(wpath)
+        doc = lock_order.emit_lock_graph(
+            str(ROOT), os.path.join(tmp, "lock_graph.json"),
+            witness_path=wpath)
+    gate_s = time.perf_counter() - t0
+    statuses = {}
+    for e in doc["baseline_entries"]:
+        statuses[e["status"]] = statuses.get(e["status"], 0) + 1
+    holds = {}
+    for name, hs in sorted(w.engine_holds.items()):
+        hs = sorted(hs)
+        holds[name.rsplit(":", 1)[-1]] = {
+            "count": len(hs), "p99_ms": hs[int(0.99 * (len(hs) - 1))] * 1e3,
+            "max_ms": hs[-1] * 1e3}
+    resident = sum(bool(g is not None and g.resident) for g in got)
+    rec = {
+        "workflows": SAN_WORKFLOWS, "drive_s": drive_s, "gate_s": gate_s,
+        "serving_reads": len(got), "resident_reads": resident,
+        "observed_edges": len(w.observed_edges()),
+        "unwaived_findings": [f.format() for f in unwaived],
+        "guarded_fields_registered": len(registered & set(GUARDED_FIELDS)),
+        "guarded_fields_declared": len(GUARDED_FIELDS),
+        "baseline_entries": statuses,
+        "runtime_only_edges": len(doc["runtime_only_edges"]),
+        "engine_lock_holds": holds,
+    }
+    check(unwaived == [], "(c) unwaived sanitizer findings: "
+          + "; ".join(f.anchor for f in unwaived))
+    missing = set(GUARDED_FIELDS) - registered
+    check(not missing, f"(c) guarded fields never built: {missing}")
+    check(statuses.get("observed", 0) >= 1,
+          f"(c) no baselined lock entry observed: {statuses}")
+    check(None not in got and resident >= SAN_WORKFLOWS,
+          f"(c) {resident} resident reads of {len(got)}")
+    check(counts.get("chaos_sanitized", 0) > 0, "(c) no FSM launch")
+    return rec
+
+
+def phase_chaos(RC, unpack, smi, device="cuda"):
+    """Phase 17: (a) the chaos differential, (b) checkpoint and serving
+    chaos at card size, (c) the sanitized Onebox. Returns FSM launches by
+    route."""
+    counts = {}
+    t_phase = time.perf_counter()
+    emit(phase_chaos_differential(RC, unpack, smi, counts, device))
+    t0 = time.perf_counter()
+    ckpt = phase_chaos_checkpoint(RC, unpack, counts, device)
+    ckpt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flush = phase_chaos_flush(RC, counts, device)
+    emit({"phase": "chaos", "part": "checkpoint_serving_chaos",
+          "checkpoint_rebuild": dict(ckpt, phase_s=ckpt_s),
+          "flush_engine": dict(flush, phase_s=time.perf_counter() - t0),
+          "nvidia_smi": smi})
+    emit({"phase": "chaos", "part": "sanitized_onebox",
+          **phase_chaos_sanitized(RC, counts, device),
+          "nvidia_smi": smi})
+    emit({"phase": "chaos", "part": "summary",
+          "phase_s": time.perf_counter() - t_phase,
+          "launches_by_route": counts, "nvidia_smi": smi})
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6223,7 +6842,11 @@ def main() -> int:
     entry_launches = phase_entry_points(torch, np, RC, smi,
                                         frontend_host_ms)
 
-    # 17. kernels and device
+    # 17. fault injection and the witnesses on the card, launches counted
+    # by route inside the phase
+    chaos_routes = phase_chaos(RC, unpack, smi)
+
+    # 18. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
     seg_total = seg_launches + seg_launches_lanes
     check(seg_total > 0, "the assoc path launched no scan kernel")
@@ -6241,7 +6864,8 @@ def main() -> int:
         + sum(replication_launches.values())
         + sum(topology_launches.values())
         + sum(worker_launches.values())
-        + sum(entry_launches.values()),
+        + sum(entry_launches.values())
+        + sum(chaos_routes.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -6282,7 +6906,8 @@ def main() -> int:
                               **serve_launches, **parallel_launches,
                               **service_launches, **frontend_launches,
                               **replication_launches, **topology_launches,
-                              **worker_launches, **entry_launches},
+                              **worker_launches, **entry_launches,
+                              **chaos_routes},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",

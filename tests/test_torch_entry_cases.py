@@ -18,6 +18,11 @@ script is rewritten the same way and its ``HistoryService`` runs on
 ``test_xdc_replication.py``, which is exec'd on the port as well and
 registered as ``tests.port_test_xdc_replication``.
 
+The port's ``heap_top`` and the reference's share the process's one
+``tracemalloc``: a case that started it stops it afterwards, so a later
+reference case in the same worker still gets the "tracemalloc started"
+reply to its first heap request.
+
 Left out, each with its reason (``LEFT_OUT``): the cases that need a
 module the port has not yet, and the ``setup_env`` half of
 ``test_environment_module_defaults``.
@@ -29,6 +34,7 @@ import functools
 import inspect
 import re
 import sys
+import tracemalloc
 import types
 from pathlib import Path
 
@@ -241,6 +247,7 @@ def test_reference_entry_case_on_port(case, request):
     ns, cls, name = _ALL[case]
     fn = getattr(ns[cls](), name) if cls is not None else ns[name]
     stack = []
+    tracing = tracemalloc.is_tracing()
     try:
         for attr, obj in ns.items():
             if _is_fixture(obj) and obj._fixture_function_marker.autouse:
@@ -250,3 +257,16 @@ def test_reference_entry_case_on_port(case, request):
         fn(*args)
     finally:
         _teardown(stack)
+        if not tracing and tracemalloc.is_tracing():
+            tracemalloc.stop()
+
+
+def test_pprof_case_leaves_tracemalloc_as_found(request):
+    """The port's heap endpoint starts ``tracemalloc``; its case stops it
+    again, or the reference's ``test_pprof::test_endpoints_serve`` in the
+    same worker finds it tracing and its first heap request gets a
+    snapshot in which "tracemalloc" may not appear."""
+    before = tracemalloc.is_tracing()
+    test_reference_entry_case_on_port("test_pprof::test_endpoints_serve",
+                                      request)
+    assert tracemalloc.is_tracing() == before

@@ -560,9 +560,9 @@ def test_serving_reads_match_host_replay(both):
 
 
 def test_port_admin_refuses_unported_planes():
-    """The Onebox twin refuses only the planes the port has not yet
-    (fault injection, the sanitizer) and starts and stops its worker
-    service by default, as the reference's does; the reshard
+    """The Onebox twin takes the planes it once refused (fault
+    injection, the sanitizer) and starts and stops its worker service by
+    default, as the reference's does; the reshard
     verbs, the admin queue view and the autopilot verbs answer as the
     reference's do on the same calls, timings left out."""
     from cadence_tpu.testing.onebox import Onebox as JaxOnebox
@@ -618,9 +618,20 @@ def test_port_admin_refuses_unported_planes():
         box.stop()
     with pytest.raises(BadRequestError):
         Onebox(num_shards=1, device="cpu").admin.autopilot_status()
-    for kw in ({"faults": object()}, {"sanitize": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Onebox(device="cpu", **kw)
+    # fault injection and the sanitizer are ported: a box wraps its
+    # store in the fault client (innermost) and the sanitizer's probe
+    # (outermost), and threads the schedule into its history service
+    from cadence_tpu_torch.testing.faults import (
+        FaultInjectionClient, FaultSchedule)
+    from cadence_tpu_torch.testing.race_witness import SanitizerProbeClient
+
+    sched = FaultSchedule(seed=3)
+    box = Onebox(num_shards=1, start_worker=False, faults=sched,
+                 sanitize=True, device="cpu")
+    assert box.history.faults is sched
+    assert isinstance(box.persistence.execution, SanitizerProbeClient)
+    assert isinstance(box.persistence.execution._base._base,
+                      FaultInjectionClient)
     # the worker service is ported: the default box starts and stops it
     box = Onebox(device="cpu").start()
     try:

@@ -212,7 +212,9 @@ def test_import_hygiene():
     onebox and serving-demo twins, and the server's entry points (the
     gRPC plane, the routed clients, the config loader and bootstrap, the
     template renderer, the operator CLI, the canary and the pprof
-    endpoint) included, loads neither jax nor the reference package."""
+    endpoint), fault injection, the effect and race witnesses, the
+    tracked locks and the static lock-order pass included, loads neither
+    jax nor the reference package."""
     code = (
         "import sys\n"
         "import cadence_tpu_torch\n"
@@ -260,6 +262,11 @@ def test_import_hygiene():
         "import cadence_tpu_torch.config.render\n"
         "import cadence_tpu_torch.tools.cli, cadence_tpu_torch.canary\n"
         "import cadence_tpu_torch.utils.pprof\n"
+        "import cadence_tpu_torch.testing.race_witness\n"
+        "import cadence_tpu_torch.testing.effect_witness\n"
+        "import cadence_tpu_torch.analysis.lock_order\n"
+        "import cadence_tpu_torch.analysis.findings\n"
+        "import cadence_tpu_torch.utils.locks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cadence_tpu' or m.startswith('cadence_tpu.')]\n"
         "print(bad)\n"

@@ -8,9 +8,8 @@ is exec'd with every ``cadence_tpu.`` import taken from
 (``HistoryService``, ``StateRebuilder``, ``ReplicatorQueueProcessor``)
 bound to ``device="cpu"``; each of its test functions and test methods is
 one parametrised case here, its fixture set up and torn down around it.
-
-Cases that need the fault schedules (``FaultRule``, ``FaultSchedule``)
-wait for the port's testing slice and are not collected (``NEEDS_FAULTS``).
+The case that builds a fault schedule (``FAULT_CASES``) runs on the port's
+``testing.faults``.
 """
 
 from __future__ import annotations
@@ -32,21 +31,13 @@ SOURCES = (
     "test_replication_transport",
     "test_failover_drills",
 )
-# cases that construct a FaultSchedule
-NEEDS_FAULTS = {
+# the case that constructs a FaultSchedule
+FAULT_CASES = {
     "test_failover_drills::TestFailoverRegionLossStorm::"
     "test_forced_failover_and_failback_byte_identical",
 }
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder",
                  "ReplicatorQueueProcessor")
-
-
-class _Unported:
-    """Stands for a fault-schedule class of the reference's testing
-    module; the cases that call it are not collected."""
-
-    def __init__(self, *a, **kw):
-        raise NotImplementedError("fault schedules are not ported yet")
 
 
 def _load(name: str, port: bool = True) -> dict:
@@ -59,16 +50,12 @@ def _load(name: str, port: bool = True) -> dict:
         ns = {"__name__": f"tests.ref_{name}"}
         exec(compile(src, str(path), "exec"), ns)
         return ns
-    # the fault schedules stay in the reference package's testing module
-    src = re.sub(r"^\s+FaultRule,\n\s+FaultSchedule,\n", "", src,
-                 flags=re.M)
     src = re.sub(r"\bcadence_tpu\.", "cadence_tpu_torch.", src)
     # a device-taking constructor imported inside a function body
     src = src.replace("StateRebuilder(bundle.history, checkpoints=mgr)",
                       'StateRebuilder(bundle.history, checkpoints=mgr, '
                       'device="cpu")')
-    ns = {"__name__": f"tests.port_{name}",
-          "FaultRule": _Unported, "FaultSchedule": _Unported}
+    ns = {"__name__": f"tests.port_{name}"}
     exec(compile(src, str(path), "exec"), ns)
     for cls in _DEVICE_BOUND:
         if cls in ns:
@@ -99,7 +86,7 @@ def _cases():
 
 
 _ALL = _cases()
-CASES = sorted(k for k in _ALL if k not in NEEDS_FAULTS)
+CASES = sorted(_ALL)
 
 
 def test_reference_cases_found():
@@ -113,7 +100,7 @@ def test_reference_cases_found():
         "test_replication_transport": per_file["test_replication_transport"],
         "test_failover_drills": per_file["test_failover_drills"],
     }
-    assert NEEDS_FAULTS <= set(_ALL)
+    assert FAULT_CASES <= set(_ALL)
 
 
 @pytest.mark.parametrize("case", CASES)

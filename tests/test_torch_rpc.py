@@ -18,7 +18,9 @@ first (it seats the workflow) and a resident hit second, each read equal
 to the port's host ``StateBuilder`` replay of the history fetched over
 the wire at the read's tip; the ``server`` command of the port's CLI boots on the CPU in
 a child process and answers a ping; the pprof device trace brackets a
-torch op on the CPU profiler; and the entry points default to the card.
+torch op on the CPU profiler; the entry points default to the card; and a
+host booted from a YAML config with its chaos section on carries the
+fault schedule, which the operator disarms and arms again.
 """
 
 from __future__ import annotations
@@ -361,20 +363,75 @@ def test_entry_points_default_to_cuda():
 
 
 def test_chaos_section_refused_until_fault_schedules_are_ported():
-    from cadence_tpu_torch.config import load_config_dict, start_services
-    from cadence_tpu_torch.runtime.persistence.decorators import wrap_bundle
+    """What the port once refused now builds: a chaos section with rules
+    parses into the port's ``FaultSchedule``, and ``wrap_bundle`` puts the
+    fault client under the metrics client."""
+    from cadence_tpu_torch.config import load_config_dict
+    from cadence_tpu_torch.config.static import ConfigError
+    from cadence_tpu_torch.runtime.persistence.decorators import (
+        MetricsClient, wrap_bundle)
     from cadence_tpu_torch.runtime.persistence.memory import (
         create_memory_bundle)
+    from cadence_tpu_torch.testing.faults import (
+        FaultInjectionClient, FaultSchedule)
 
-    cfg = load_config_dict({"chaos": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="fault schedules"):
-        start_services(cfg, ["history"], device="cpu")
-    with pytest.raises(NotImplementedError, match="fault schedules"):
-        load_config_dict({"chaos": {"rules": [{"site": "x"}]}})
+    cfg = load_config_dict({"chaos": {"enabled": True, "seed": 3,
+                                      "rules": [{"site": "x"}]}})
+    sched = cfg.chaos.build_schedule()
+    assert isinstance(sched, FaultSchedule) and sched.seed == 3
     assert load_config_dict({"chaos": {"enabled": False, "seed": 3,
                                        "rules": []}}).chaos.seed == 3
-    with pytest.raises(NotImplementedError):
-        wrap_bundle(create_memory_bundle(), faults=object())
+    with pytest.raises(ConfigError, match="chaos.rules"):
+        load_config_dict({"chaos": {"rules": [{"action": "explode"}]}})
+    bundle = wrap_bundle(create_memory_bundle(), faults=sched)
+    assert isinstance(bundle.execution, MetricsClient)
+    assert isinstance(bundle.execution._base, FaultInjectionClient)
+
+
+def test_config_booted_host_with_chaos_on(tmp_path):
+    """A host booted from a YAML config whose chaos section is enabled
+    carries the armed schedule on its store and its history service;
+    disarmed, every canary probe passes over the wire; armed again, the
+    rule fires at the store and counts in the host's registry."""
+    import yaml
+
+    from cadence_tpu_torch.canary import run_canary
+    from cadence_tpu_torch.config import load_config, start_services
+    from cadence_tpu_torch.runtime.persistence.errors import (
+        PersistenceError)
+    from cadence_tpu_torch.testing.faults import FaultSchedule
+
+    path = tmp_path / "chaos.yaml"
+    path.write_text(yaml.safe_dump({
+        "services": {s: {"rpcAddress": f"127.0.0.1:{_free_port()}"}
+                     for s in ("frontend", "history", "matching", "worker")},
+        "ring": {"probeIntervalSeconds": 0},
+        # pinned to a shard the host does not own: nothing of the boot
+        # matches it, every call that names the shard does
+        "chaos": {"enabled": True, "seed": 11, "rules": [
+            {"site": "persistence.execution",
+             "method": "get_current_execution", "shard_id": 7,
+             "probability": 1.0, "error": "PersistenceError"}]},
+    }))
+    host = start_services(load_config(str(path)), device="cpu")
+    try:
+        assert isinstance(host.faults, FaultSchedule) and host.faults.armed
+        assert host.history.faults is host.faults
+        host.faults.disarm()
+        assert not host.faults.armed
+        results = run_canary(address=host.addresses["frontend"])
+        assert results and all(r["ok"] for r in results), [
+            r for r in results if not r["ok"]]
+        assert host.faults.injected_total() == 0
+        host.faults.arm()
+        with pytest.raises(PersistenceError, match="fault-injected"):
+            host.history.persistence.execution.get_current_execution(
+                7, "d", "wf")
+        assert host.faults.injected_total() == 1
+        assert host.metrics.registry.counter_value("faults_injected") == 1
+    finally:
+        host.faults.disarm()
+        host.stop()
 
 
 # -- repairs found driving the entry points (ROADMAP C.5, C.6) -------------

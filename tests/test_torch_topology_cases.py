@@ -10,12 +10,9 @@ here, its fixtures set up and torn down around it.
 
 ``test_autopilot.py``'s topology cases build the reference's ``ChaosBox``
 (``tests/test_chaos_recovery.py``). That module is exec'd on the port as
-well (its fault-schedule imports stand in unported, since a box without
-faults, effects or sanitize never touches them), and the cases import
-``ChaosBox`` from that port copy, never from the reference.
-
-Cases that need the fault schedules (``FaultRule``, ``FaultSchedule``)
-wait for the port's testing slice and are not collected (``NEEDS_FAULTS``).
+well, once, by ``tests/test_torch_chaos_cases.py``'s ``chaos_module``, and
+the cases import ``ChaosBox`` from that port copy, never from the
+reference. The cases that build fault schedules run on the port's.
 """
 
 from __future__ import annotations
@@ -23,17 +20,18 @@ from __future__ import annotations
 import functools
 import inspect
 import re
-import sys
-import types
 from pathlib import Path
 
 import pytest
 
+from tests.test_torch_chaos_cases import CHAOS_MODULE, chaos_module
+
 REPO = Path(__file__).resolve().parents[1]
 
 SOURCES = ("test_parallel_queue", "test_resharding", "test_autopilot")
-# cases that construct a FaultSchedule
-NEEDS_FAULTS = {
+# the cases that construct a FaultSchedule: collected since the port
+# has fault schedules (the slow one stays out with the slow cases)
+FAULT_CASES = {
     "test_resharding::TestCoordinator::"
     "test_failed_install_rolls_back_to_old_epoch",
     "test_resharding::TestCoordinator::"
@@ -48,21 +46,6 @@ NEEDS_FAULTS = {
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder",
                  "ReplicatorQueueProcessor", "ReshardCoordinator",
                  "ResidentEngine")
-# the port module the chaos harness is exec'd into
-_CHAOS_MODULE = "tests.port_test_chaos_recovery"
-# names the chaos module imports that the port has not yet
-_UNPORTED = ("FaultInjectionClient", "FaultRule", "FaultSchedule",
-             "PersistenceBusyError", "RateLimitedClient")
-
-
-class _Unported:
-    """Stands for a fault-injection name of the reference; the cases
-    that call it are not collected."""
-
-    def __init__(self, *a, **kw):
-        raise NotImplementedError("fault injection is not ported yet")
-
-
 def _bind_devices(ns: dict) -> None:
     for cls in _DEVICE_BOUND:
         if cls in ns:
@@ -70,37 +53,17 @@ def _bind_devices(ns: dict) -> None:
 
 
 def _port_source(src: str) -> str:
-    # the fault-injection names stay in the reference package
-    for name in _UNPORTED:
-        src = re.sub(rf"^\s+{name},\n", "", src, flags=re.M)
-    src = re.sub(r"^from [\w.]+ import \(\n\)\n", "", src, flags=re.M)
     src = src.replace("from tests.test_chaos_recovery import",
-                      f"from {_CHAOS_MODULE} import")
+                      f"from {CHAOS_MODULE} import")
     return re.sub(r"\bcadence_tpu\.", "cadence_tpu_torch.", src)
 
 
 def _exec(name: str, src: str, module: str) -> dict:
     path = REPO / "tests" / f"{name}.py"
     ns = {"__name__": module}
-    for n in _UNPORTED:
-        ns[n] = _Unported
     exec(compile(src, str(path), "exec"), ns)
     _bind_devices(ns)
     return ns
-
-
-def _chaos_module() -> types.ModuleType:
-    """``tests/test_chaos_recovery.py`` exec'd on the port, registered as
-    a module so the autopilot cases' function-level import finds it."""
-    mod = sys.modules.get(_CHAOS_MODULE)
-    if mod is None:
-        src = _port_source(
-            (REPO / "tests" / "test_chaos_recovery.py").read_text())
-        mod = types.ModuleType(_CHAOS_MODULE)
-        mod.__dict__.update(_exec("test_chaos_recovery", src,
-                                  _CHAOS_MODULE))
-        sys.modules[_CHAOS_MODULE] = mod
-    return mod
 
 
 class _DeviceBinder:
@@ -133,7 +96,7 @@ def _load(name: str) -> dict:
     """The reference test module ``name`` exec'd on the port into a fresh
     namespace."""
     if "test_chaos_recovery" in (REPO / "tests" / f"{name}.py").read_text():
-        _chaos_module()
+        chaos_module()
     src = _port_source((REPO / "tests" / f"{name}.py").read_text())
     return _exec(name, src, f"tests.port_{name}")
 
@@ -176,7 +139,7 @@ def _all_cases(name: str) -> set:
 
 
 _ALL = _cases()
-CASES = sorted(k for k in _ALL if k not in NEEDS_FAULTS)
+CASES = sorted(_ALL)
 
 
 def test_reference_cases_found():
@@ -187,7 +150,8 @@ def test_reference_cases_found():
         "test_autopilot": 38,
     }
     # test_autopilot's two slow-marked chaos cases are not collected
-    # (tier-1 runs -m 'not slow'); every other case is, save NEEDS_FAULTS
+    # (tier-1 runs -m 'not slow'); every other case is, the fault cases
+    # included
     slow = set().union(*every.values()) - set(_ALL)
     assert slow == {
         "test_autopilot::TestAutopilotChaos::"
@@ -195,11 +159,11 @@ def test_reference_cases_found():
         "test_autopilot::TestAutopilotChaos::"
         "test_write_fault_storm_during_actuation_byte_identical",
     }
-    assert NEEDS_FAULTS <= set().union(*every.values())
-    assert len(CASES) == 19 + 22 + 38 - len(slow) - len(NEEDS_FAULTS - slow)
+    assert FAULT_CASES - slow <= set(CASES)
+    assert len(CASES) == 19 + 22 + 38 - len(slow)
     # the autopilot cases build the port's ChaosBox, not the reference's
-    chaos = _chaos_module()
-    assert chaos.ChaosBox.__module__ == _CHAOS_MODULE
+    chaos = chaos_module()
+    assert chaos.ChaosBox.__module__ == CHAOS_MODULE
     assert chaos.HistoryService.func.__module__ == \
         "cadence_tpu_torch.runtime.service"
 

@@ -15,9 +15,8 @@ exec'd on the port too and registered as ``tests.port_test_frontend``,
 and the cases import it from there, never from the reference.
 
 ``test_config_bootstrap.py`` runs whole in ``test_torch_entry_cases.py``.
-Left out, with its reason (``LEFT_OUT``): the torn-write case of
-``test_persistence.py``, which builds a fault schedule (``FaultRule``,
-``FaultSchedule``) the port has not yet.
+The torn-write case of ``test_persistence.py`` builds its fault schedule
+from the port's ``testing.faults``.
 """
 
 from __future__ import annotations
@@ -40,12 +39,6 @@ SOURCES = {
     "test_worker_daemons": None,
     "test_archived_reads": None,
     "test_checkpoint": ("test_store_roundtrip_order_and_prune",),
-}
-# what is not run on the port, and why
-LEFT_OUT = {
-    "test_persistence::TestReplicationProgress::"
-    "test_torn_write_retry_reads_landed_blob_as_success":
-        "builds a FaultSchedule: fault injection is not ported yet",
 }
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder", "Onebox",
                  "replay_packed")
@@ -149,8 +142,6 @@ def _cases() -> dict:
     for name in SOURCES:
         ns = _load(name)
         for stem, cls, meth, fn in _tests(ns):
-            if f"{name}::{stem}" in LEFT_OUT:
-                continue
             for p in _params(ns, fn):
                 key = f"{name}::{stem}" + (f"[{p['id']}]" if p else "")
                 out[key] = (ns, cls, meth, p)
@@ -162,20 +153,23 @@ CASES = sorted(_ALL)
 
 
 def test_reference_cases_found():
-    """Every test of the four sources is a case here, once per backend,
-    save the one named in ``LEFT_OUT``."""
+    """Every test of the four sources is a case here, once per
+    backend."""
     per_file = {}
     for key in CASES:
         per_file[key.split("::")[0]] = per_file.get(key.split("::")[0],
                                                     0) + 1
     assert per_file == {
-        "test_persistence": 2 * 27,
+        "test_persistence": 2 * 28,
         "test_worker_daemons": 8,
         "test_archived_reads": 5,
         "test_checkpoint": 2,
     }
     assert ("test_persistence::TestHistoryTrees::"
             "test_list_history_trees_both_backends[memory]") in _ALL
+    assert ("test_persistence::TestReplicationProgress::"
+            "test_torn_write_retry_reads_landed_blob_as_success[sqlite]"
+            ) in _ALL
     # the daemons build the port's FrontendBox, not the reference's
     frontend = _frontend_module()
     assert frontend.FrontendBox.__module__ == _FRONTEND_MODULE
