@@ -754,7 +754,7 @@ def emit_lock_graph(
     """Write the versioned lock-graph artifact: the full static
     inventory + edge list, each edge annotated ``observed``
     true/false against the latest runtime witness
-    (``build/lock_witness.json``, written by the sanitized tier-1 /
+    (``build/torch_lock_witness.json``, written by the sanitized tier-1 /
     ``CHAOS_SANITIZE=1`` runs), and every baselined lock finding
     annotated ``observed``/``never-observed`` — turning the
     baseline's prose justifications into machine-checked evidence.
@@ -775,7 +775,7 @@ def emit_lock_graph(
     witness = None
     witness_note = "no witness artifact (run a sanitized suite first)"
     wpath = witness_path or os.path.join(
-        repo_root, "build", "lock_witness.json"
+        repo_root, "build", "torch_lock_witness.json"
     )
     if os.path.isfile(wpath):
         try:

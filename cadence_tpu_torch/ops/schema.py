@@ -259,6 +259,120 @@ ROW_TS_COLS = {
 }
 
 
+# --------------------------------------------------------------------------
+# Per-column update algebra — the metadata the parallel-in-time replay
+# (ops/assoc.py) and the ASSOC-UNPROVEN static-analysis rule share.
+#
+# Every kernel write to a state cell must compose associatively for the
+# segmented-scan replay to be sound. Four algebras cover the transition
+# surface:
+#
+#   set      x -> v            the mul=0 affine case (last-writer-wins;
+#                              provenance resolution). The default.
+#   counter  x -> x + d        the mul=1 affine case (prefix sums).
+#   fsm      x -> f(x)         bounded function table closed under
+#                              composition (X_STATE's Created->Running
+#                              promotion; {identity, promote, const}).
+#   rle      run-length        the version-history add_or_update: append
+#                              on version change, recovered from a
+#                              segmented prefix count of change flags.
+#
+# A column NOT listed here is "set". A new kernel transition that reads
+# prior state in any other shape (cross-column arithmetic, data-
+# dependent control) has no declared algebra — the analysis gate then
+# reports ASSOC-UNPROVEN and the runtime classifier routes the type to
+# the sequential fallback.
+# --------------------------------------------------------------------------
+
+UPDATE_ALGEBRA = {
+    "exec:X_STATE": "fsm",
+    "exec:X_SIGNAL_COUNT": "counter",
+    "exec:X_DEC_ATTEMPT": "counter",
+    "vh:event_id": "rle",
+    "vh:version": "rle",
+    "vh:len": "rle",
+}
+
+DEFAULT_ALGEBRA = "set"
+
+ALGEBRAS = ("set", "counter", "fsm", "rle")
+
+
+def update_algebra(label: str) -> str:
+    """Composition algebra of one state-cell label (``exec:X_*``,
+    ``vh:*``, or a slot-table label like ``activities:AC_*``)."""
+    return UPDATE_ALGEBRA.get(label, DEFAULT_ALGEBRA)
+
+
+# (prefix, count constant) per column table — the reflection surface
+# shared with analysis/transition_surface.py
+_COLUMN_GROUPS = (
+    ("EV_", "EV_N"), ("X_", "X_N"), ("AC_", "AC_N"), ("TI_", "TI_N"),
+    ("CH_", "CH_N"), ("RC_", "RC_N"), ("SG_", "SG_N"),
+)
+
+
+def validate(ns: Dict[str, Any] = None) -> None:
+    """Assert column-constant density and uniqueness, and that every
+    ROW_TS_COLS entry names a real column of its field.
+
+    The cheapest invariant of the transition-surface checker
+    (analysis/), also enforced at import time so a botched
+    column renumber fails the FIRST import, not the next lint run. Cost
+    is a few hundred dict lookups.
+    """
+    ns = ns if ns is not None else globals()
+    for prefix, count_name in _COLUMN_GROUPS:
+        n = ns[count_name]
+        seen: Dict[int, str] = {}
+        for k, v in ns.items():
+            if not k.startswith(prefix) or k == count_name:
+                continue
+            if not isinstance(v, int) or isinstance(v, bool):
+                continue
+            if v in seen:
+                raise AssertionError(
+                    f"schema column collision: {seen[v]} and {k} both = {v}"
+                )
+            if not 0 <= v < n:
+                raise AssertionError(
+                    f"schema column {k} = {v} outside [0, {count_name}={n})"
+                )
+            seen[v] = k
+        if len(seen) != n:
+            missing = sorted(set(range(n)) - set(seen))
+            raise AssertionError(
+                f"schema columns not dense: {prefix}* has no constant for "
+                f"value(s) {missing} under {count_name}={n}"
+            )
+    counts = {
+        "exec_info": ns["X_N"], "activities": ns["AC_N"],
+        "timers": ns["TI_N"], "children": ns["CH_N"],
+        "cancels": ns["RC_N"], "signals": ns["SG_N"],
+    }
+    for field, cols in ns["ROW_TS_COLS"].items():
+        for c in cols:
+            if not 0 <= c < counts[field]:
+                raise AssertionError(
+                    f"ROW_TS_COLS[{field!r}] column {c} outside its table "
+                    f"(N={counts[field]})"
+                )
+    for label, algebra in ns["UPDATE_ALGEBRA"].items():
+        if algebra not in ns["ALGEBRAS"]:
+            raise AssertionError(
+                f"UPDATE_ALGEBRA[{label!r}] = {algebra!r} is not one of "
+                f"{ns['ALGEBRAS']}"
+            )
+        kind, _, col = label.partition(":")
+        if kind == "exec" and col not in ns:
+            raise AssertionError(
+                f"UPDATE_ALGEBRA names unknown exec column {col!r}"
+            )
+
+
+validate()
+
+
 def state_row(state: StateTensors, b: int) -> Dict[str, Any]:
     """Copy workflow ``b``'s slice of a StateTensors batch to a row dict."""
     return {

@@ -4,8 +4,8 @@
 executes non-conflicting SMR commands concurrently because they
 commute; the queue planes earn the same right from the proven per-task
 effect footprints (``effects.TASK_FOOTPRINTS``, gated bidirectionally
-by the reference's analysis pass and effect witness). This module is
-that executor — a shared wave scheduler replacing the
+by the analysis gate's queue-effect pass and the effect witness). This
+module is that executor — a shared wave scheduler replacing the
 one-task-at-a-time drain of ``QueueProcessorBase`` behind the
 reference's ``queues.parallelism`` config gate (the Onebox's
 ``queue_parallel`` here; sequential stays the default):
@@ -46,7 +46,9 @@ A copy of the reference package's ``runtime/queues/parallel.py``. The
 port writes its matrix artifact at ``PORT_MATRIX_PATH`` (under the
 checkout's ``build/``, beside and never over the reference package's
 ``build/queue_conflict_matrix.json``) and regenerates it with
-``ensure_conflict_matrix``; the reference's analysis gate is not ported.
+``ensure_conflict_matrix``; the port's analysis gate writes the same
+document plus its AST-extracted ``ms_columns`` (``python -m
+cadence_tpu_torch.analysis --emit-conflict-matrix``).
 """
 
 from __future__ import annotations
@@ -95,9 +97,9 @@ def ensure_conflict_matrix(path: str) -> str:
     missing, unreadable, or fingerprint-stale against the live footprint
     table — consumers (the topology cells, the smoke run) call this so
     they never gate on an artifact an older checkout left behind.
-    Returns ``path``. It writes the runtime-derived document (the
-    reference's lint emit adds an AST-extracted ``ms_columns``
-    annotation the port does not build)."""
+    Returns ``path``. It writes the runtime-derived document; the
+    analysis gate's ``--emit-conflict-matrix`` writes the same document
+    plus an AST-extracted ``ms_columns`` annotation."""
     from ...analysis import artifact
 
     try:

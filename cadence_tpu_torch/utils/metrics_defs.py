@@ -19,9 +19,16 @@ instrumentation, and the name catalogs of the planes ported so far:
 replication and failover (``REPLICATION_METRICS``, ``FAILOVER_METRICS``),
 the parallel queue executor (``PARQUEUE_METRICS``), resharding
 (``RESHARD_METRICS``), the capacity autopilot (``AUTOPILOT_METRICS``),
-fault injection (``FAULT_METRICS``) and the tracing plane's
-self-telemetry (``TELEMETRY_METRICS``).
-The reference's other ``*_METRICS`` catalogs wait for their planes.
+fault injection (``FAULT_METRICS``), checkpoints (``CHECKPOINT_METRICS``),
+the history engine (``ENGINE_METRICS``), the serving engine and its
+harness (``SERVING_METRICS``, ``OVERLOAD_METRICS``), the device step
+(``DEVICE_METRICS``) and the tracing
+plane's self-telemetry (``TELEMETRY_METRICS``), plus the port's own
+rebuilder and tick timers (``REBUILD_METRICS``,
+``SERVING_TICK_METRICS``). The analysis gate's
+``METRIC-UNDECLARED`` holds every literal emission to them.
+``DEVICE_METRICS`` is declared but not yet emitted: the port's
+dispatcher takes no metrics scope.
 """
 
 from __future__ import annotations
@@ -245,6 +252,180 @@ AUTOPILOT_METRICS = (
     "autopilot_pauses",
     "autopilot_resumes",
     "autopilot_paused",
+)
+
+# checkpointed incremental replay (checkpoint/), emitted by
+# the state rebuilder under tags (layer=checkpoint): every rebuild_many
+# lookup counts exactly one of hit / miss / invalidated (invalidated =
+# candidates existed but all failed validation: stale fingerprint,
+# capacity mismatch, or NDC divergence before the snapshot), and
+# events_replayed_saved accumulates the events a hit skipped — the
+# direct measure of the O(depth) → O(new events) conversion.
+CHECKPOINT_METRICS = (
+    "checkpoint_hit",
+    "checkpoint_miss",
+    "checkpoint_invalidated",
+    "events_replayed_saved",
+)
+
+# history engine workload counters (runtime/engine/engine.py), tagged
+# (service=history, shard=...): today just the start rate; grows with
+# the serving-path work (METRIC-UNDECLARED keeps this list honest).
+ENGINE_METRICS = ("workflow_started",)
+
+# device-step kernel telemetry (ops/dispatch.py): the reference's
+# dispatcher emits these per staged/replayed batch under tags
+# (layer=device, kernel=..., mode=hist|lanes|hist_assoc|lanes_assoc);
+# the port's dispatcher takes no metrics scope yet, so they are declared
+# here and emitted nowhere:
+#
+#   device_batches       counter — batches replayed
+#   host_stage_seconds   histogram — pack + H2D staging wall time
+#   device_step_seconds  histogram — kernel wall time (the run pump
+#                        blocks on the result when telemetry is on, so
+#                        this is honest device time, not dispatch time)
+#   batch_width          histogram — padded batch width per dispatch
+#                        (the compiled-executable grid in action)
+#   padding_frac         gauge — padded slots ÷ real events of the last
+#                        batch (the lane packer's waste)
+#   lane_occupancy       gauge — histories per lane of the last
+#                        lane-packed batch
+#   jit_cache_entries    gauge — total compiled executables across the
+#                        replay kernels visible to this dispatcher
+#   jit_retraces         counter — cache-size growth observed after a
+#                        batch (a retrace storm shows up here first,
+#                        without re-running offline profiles)
+DEVICE_METRICS = (
+    "device_batches",
+    "host_stage_seconds",
+    "device_step_seconds",
+    "batch_width",
+    "padding_frac",
+    "lane_occupancy",
+    "jit_cache_entries",
+    "jit_retraces",
+)
+
+# the state rebuilder (runtime/replication/rebuilder.py), tagged
+# (layer=rebuild): host_fallbacks counts the runs the host oracle
+# rebuilt after the packer refused their batch; the timers
+# history_read (checkpoint consult and history read), dispatch_wait
+# (waiting on the dispatcher's packed and replayed batches), rehydrate
+# (rows to MutableStates, task refresh, checkpoint writes) and
+# host_fallback split a rebuild_many call's wall.
+REBUILD_METRICS = (
+    "host_fallbacks",
+    "history_read",
+    "dispatch_wait",
+    "rehydrate",
+    "host_fallback",
+)
+
+# the serving engine's split of a compose group's wall (serving/
+# engine.py), tagged (layer=serving): the pack of its Δs, the replay
+# on the device, the commit of its rows into the lanes.
+SERVING_TICK_METRICS = (
+    "serving_tick_pack",
+    "serving_tick_replay",
+    "serving_tick_commit",
+)
+
+# continuous-batching serving engine (serving/), emitted
+# under tags (layer=serving) by the ResidentEngine and
+# (layer=serving_harness) by the open-loop load harness:
+#
+#   serving_admits            counter — workflows seated into lanes
+#   serving_admit_cold        counter — seats that cold-replayed the prefix
+#   serving_admit_resume      counter — seats rehydrated from a checkpoint
+#   serving_admit_queued      counter — admits parked (all lanes busy)
+#   serving_admit_failures    counter — seats dropped (unpackable history)
+#   serving_appends           counter — Δ suffixes staged
+#   serving_append_events     counter — events across staged Δs
+#   serving_stale_appends     counter — generation-stamp rejections (a
+#                             stale ticket/in-flight step on a recycled
+#                             slot — the invariant, observable)
+#   serving_gapped_appends    counter — appends refused because events
+#                             between the staged tip and the batch
+#                             never arrived (bare lanes only; history-
+#                             backed lanes record the debt and the
+#                             catch-up heals it)
+#   serving_ticks             counter — fused device steps run
+#   serving_tick_seconds      histogram — per-tick wall time
+#   serving_append_width      counter per grid-rounded width tag —
+#                             lanes composed per tick (the batch shape)
+#   serving_events_replayed   counter — events composed (O(Δ) proof:
+#                             ≈ serving_append_events, never O(depth))
+#   serving_compose_failures  counter — lanes whose Δ was unreplayable
+#                             (lane freed; readmit-from-store recovers)
+#   serving_lane_occupancy    gauge — seated lanes ÷ S
+#   serving_evictions         counter — lanes flushed + freed
+#   serving_recycles          counter — freed slots refilled from the
+#                             admission queue
+#   serving_flush_failures    counter — eviction flushes that did not
+#                             land (readmit degrades to cold replay)
+#   serving_resident_hits     counter — reads answered from a lane
+#   serving_cold_misses       counter — reads that fell to cold replay
+#   serving_cold_read_failures counter — cold reads the serving caps
+#                             could not pack/replay (returned None;
+#                             the rebuild verbs stay the recovery path)
+#   serving_read_seconds      histogram — read wall time
+#   serve_decision            histogram — open-loop decision latency
+#                             (scheduled arrival → read done; p50/p99
+#                             in the bench serve_continuous record)
+#   serve_shed                counter — arrivals shed by the admission
+#                             token bucket / a failed seat
+#   serving_admit_starvation_age_ms histogram — how long a parked
+#                             admission waited before the fair refill
+#                             seated it (deadline aging bounds the p100:
+#                             TestOverloadChaos's no-starvation proof)
+#   serving_staleness_ms      histogram — first-dirty → composed per
+#                             lane; the tick pump holds its p99 under
+#                             the configured staleness bound even for
+#                             write-heavy/read-light lanes
+#   serving_tick_pump_errors  counter — pump cycles that failed (the
+#                             pump logs, backs off capped, keeps going)
+SERVING_METRICS = (
+    "serving_admits",
+    "serving_admit_cold",
+    "serving_admit_resume",
+    "serving_admit_queued",
+    "serving_admit_failures",
+    "serving_appends",
+    "serving_append_events",
+    "serving_stale_appends",
+    "serving_gapped_appends",
+    "serving_ticks",
+    "serving_tick_seconds",
+    "serving_append_width",
+    "serving_events_replayed",
+    "serving_compose_failures",
+    "serving_lane_occupancy",
+    "serving_evictions",
+    "serving_recycles",
+    "serving_flush_failures",
+    "serving_resident_hits",
+    "serving_cold_misses",
+    "serving_cold_read_failures",
+    "serving_read_seconds",
+    "serve_decision",
+    "serve_shed",
+    "serving_admit_starvation_age_ms",
+    "serving_staleness_ms",
+    "serving_tick_pump_errors",
+)
+
+# overload control plane, emitted by the layers that shed
+# or give up: frontend_requests_shed counts frontend rate-limit
+# rejections under tags (service=frontend, domain=...) — each carries
+# a retry-after hint on the ServiceBusyError; retry_budget_exhausted
+# counts the moments a client's success-refilled retry budget denied a
+# ServiceBusy re-offer (layer=client) or the open-loop harness's
+# simulated client did the same (layer=serving_harness) — the
+# retry-storm breaker firing, i.e. load that was offered once and NOT
+# multiplied.
+OVERLOAD_METRICS = (
+    "frontend_requests_shed",
+    "retry_budget_exhausted",
 )
 
 # tracing plane self-telemetry (utils/tracing.py + utils/metrics.py),

@@ -93,9 +93,9 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
 12. ``frontend``: the user path (``cadence_tpu_torch/frontend``,
     ``worker``, ``testing/onebox``): the port's Onebox twin over a 4-shard
     history host with a ``ResidentEngine`` of a lane a workflow, 16 SDK
-    ``Worker``s (sticky) on one task list, 2,048 workflows started through the
+    ``Worker``s (sticky) on one task list, 1,024 workflows started through the
     frontend (every fourth with an activity, each then waiting on
-    signals), an open-loop burst of 4,096 requests (300 qps, bursty), each
+    signals), an open-loop burst of 2,048 requests (300 qps, bursty), each
     a frontend signal and a ``serving_read`` (a workflow's first read a
     cold miss that seats it), every read against the host replay at its
     tip, queries the SDK answers and histories on a seeded 256, the
@@ -188,7 +188,7 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     ``canary``, ``utils/pprof.py``) over gRPC: (a) ``config_host``, a
     host booted by ``start_services`` from a config (a YAML file too),
     memory store, 4 shards, the four services on loopback ports, the
-    serving section on at 1,024 lanes; 1,024 workflows started through a
+    serving section on at 512 lanes; 512 workflows started through a
     ``RemoteFrontend`` (every fourth with an activity) and answered by 8
     SDK workers over gRPC, a signal each, ``RemoteHistory.serving_read``
     of every workflow (a cold miss that seats it), a second signal each,
@@ -231,7 +231,22 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     each), ``check_race_witness`` against the port's static lock graph,
     every declared guarded field built, a baselined entry observed, the
     engine lock's held-time p99. ``host_fallbacks`` stays 0 throughout;
-18. the refresh's line (``device_passes``: torch ops, no kernel of its
+18. ``analysis``: the static-analysis gate and the trace demo
+    (``cadence_tpu_torch/analysis``, ``testing/trace_demo.py``), (a) and
+    (c) in child processes started together beside (b): (a)
+    ``python -m cadence_tpu_torch.analysis --strict-stale --device cuda``
+    (its surface pass probes the FSM kernel on the card), exit 0,
+    findings by pass, baselined and stale counts, wall;
+    (b) the transition-surface probe on the card: ``replay_rows`` on
+    int32 events and on the int16 narrow stream and ``replay_rows_packed``
+    (one segment a lane), every group's probed matrix against the plain
+    step's label for label, every probe's rows bit for bit, and
+    ``diff_surface`` exactly the baselined findings; then every affine
+    group through ``replay_assoc(impl="segscan")`` on the card, its
+    written sets and rows against the FSM's; launches and wall of each
+    arm; (c) ``python -m cadence_tpu_torch.testing.trace_demo`` on the
+    card, exit 0, its span count and services;
+19. the refresh's line (``device_passes``: torch ops, no kernel of its
     own), the kernel list with launch counts on the main paths, then the
     device line.
 
@@ -2707,22 +2722,24 @@ def phase_service(torch, np, S, RC, smi):
 # phase 12, the frontend and the worker SDK: the port's Onebox twin with
 # the history host's resident engine (a lane a workflow, the serving
 # caps) answered by 16 SDK workers on one task list, sticky on, as a
-# fleet of worker processes polls it. 2,048 workflows (4,096, the history
+# fleet of worker processes polls it. 1,024 workflows (4,096, the history
 # host's size, until phase 15 needed the run's time: a slow host took
-# 145 s for them) started through the frontend (every fourth runs one
-# activity, each then loops on a "ping" signal), then serve_demo's
-# open-loop burst: 4,096 requests (2 a workflow, round-robin) on
+# 145 s for them; 2,048 until phase 18 needed it: a slow host ran the
+# whole script in 1,052.5 s) started through the frontend (every fourth
+# runs one activity, each then loops on a "ping" signal), then
+# serve_demo's open-loop burst: 2,048 requests (2 a workflow,
+# round-robin) on
 # ArrivalProcess(qps=300,
 # kind="bursty", seed=11), each a frontend signal and a serving_read, the
 # first read of a workflow a cold miss that seats it; then queries and
 # histories of a seeded 256, the visibility counts, and the drain. The
 # requests due at one moment form a batch (signals, then reads), whose
 # first read ticks; a burst that keeps its schedule makes batches of a
-# request or two, so the round-robin reads a lane about once per 2,048
+# request or two, so the round-robin reads a lane about once per 1,024
 # ticks. A lane stays seated while idle for fewer than FE_IDLE_TICKS
 # ticks (the engine's default, 256, would evict it between its reads)
-FE_SHARDS, FE_WORKFLOWS, FE_WORKERS, FE_ACTIVITY_EVERY = 4, 2048, 16, 4
-FE_QPS, FE_REQUESTS, FE_ARRIVAL_SEED = 300.0, 4096, 11
+FE_SHARDS, FE_WORKFLOWS, FE_WORKERS, FE_ACTIVITY_EVERY = 4, 1024, 16, 4
+FE_QPS, FE_REQUESTS, FE_ARRIVAL_SEED = 300.0, 2048, 11
 FE_SAMPLE, FE_SAMPLE_SEED, FE_BUSY_REQUESTS = 256, 12, 1024
 FE_IDLE_TICKS = 2 * FE_WORKFLOWS
 FE_DOMAIN, FE_TASK_LIST, FE_WAIT_S = "fe-domain", "fe-tl", 600.0
@@ -3081,9 +3098,11 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
 # phase 13, the replication planes. (a) xdc: two port clusters of 4
 # shards each (one history host a side, as phases 11-12) sharing a global
 # domain (clusters active and standby, failover version increment 10);
-# 2,048 workflows (4,096 until phase 15 needed the run's time: a slow
-# host took 133 s for them) started on the active and signalled 4 times
-# each, no worker, so every write mints one replication task (10,240); the
+# 1,024 workflows (4,096 until phase 15 needed the run's time: a slow
+# host took 133 s for them; 2,048 until phase 18's whole run took 1,091 s
+# of the 1,200 s limit, this part 66 s of it) started on the active and
+# signalled 4 times each, no worker, so every write mints one
+# replication task (5,120); the
 # standby, down meanwhile, then comes up and pulls through
 # enable_replication_from over an unthrottled simulated link; a managed
 # handover to the standby, one signal a workflow there, the drain back.
@@ -3097,7 +3116,7 @@ def phase_frontend(torch, np, S, RC, smi, device="cuda"):
 # version 12. (c) the reference bench's replication_lag and failover_drill
 # cells at their own sizes (bench.py:2401-2402,
 # :2407-2408)
-XDC_SHARDS, XDC_WORKFLOWS, XDC_SIGNALS, XDC_PAYLOAD = 4, 2048, 4, 96
+XDC_SHARDS, XDC_WORKFLOWS, XDC_SIGNALS, XDC_PAYLOAD = 4, 1024, 4, 96
 REPL_DOMAIN, REPL_DOMAIN_ID, XDC_TASK_LIST = (
     "repl-domain", "repl-domain-0000", "repl-tl")
 STORM10K_N, STORM10K_SAMPLE, STORM10K_SEED = 3334, 64, 13
@@ -4461,8 +4480,9 @@ def phase_topology(torch, np, S, P, RC, smi, device="cuda"):
 # at 1,310-1,720 a second; a cohort of 256 retry_deep runs is 200,000
 # commits, 137 s), and the host paths of a slow host run 1.5-3x slower
 # than a fast one's: the run must end inside its time limit there too.
-# (a) durable_rebuild: the first 64 runs of phase 8's rebuild_warm
-# cohort (256 retry_deep runs of ~1,000 events from random.Random(45))
+# (a) durable_rebuild: the first 32 runs of phase 8's rebuild_warm
+# cohort (256 retry_deep runs of ~1,000 events from random.Random(45);
+# 64 until phase 18's whole run took 1,091 s, their write 38 s of it)
 # written into a sqlite file one transaction a batch, as store_run
 # writes them, then phase 8's prefix,
 # cold and warm passes with rebuild_many over that bundle and its
@@ -4491,7 +4511,7 @@ def phase_topology(torch, np, S, P, RC, smi, device="cuda"):
 WS_SHARDS, WS_WORKERS, WS_DOMAIN, WS_TASK_LIST = 4, 16, "ws-domain", "ws-tl"
 WS_COMPLETED, WS_PARENTS, WS_CHILDREN, WS_OFFLOADED = 128, 8, 4, 2
 WS_BATCH, WS_ORPHANS = 64, 64
-DURABLE_N = 64
+DURABLE_N = 32
 WS_PARENT_TASK_LIST, WS_WAIT_S = "ws-parent-tl", 600.0
 PUSH_SHARDS, PUSH_WORKFLOWS, PUSH_SIGNALS = 4, 512, 4
 PUSH_DOMAIN, PUSH_TASK_LIST = "push-domain", "push-tl"
@@ -5251,9 +5271,10 @@ def phase_worker_store(torch, np, S, P, RC, unpack, smi, p8,
 # phase 16, the server's entry points over the wire. (a) config_host: one
 # history host's worth of services booted from a config by start_services
 # in the script's process (memory store, 4 shards, loopback ports for the
-# four services, the serving section on at 1,024 lanes, a lane a
-# workflow), the config read from a YAML file as well; 1,024 workflows
-# started through a RemoteFrontend (every fourth with an activity, each
+# four services, the serving section on at 512 lanes, a lane a
+# workflow), the config read from a YAML file as well; 512 workflows
+# (1,024 until phase 18 needed the run's time: a slow host ran the whole
+# script in 1,052.5 s) started through a RemoteFrontend (every fourth with an activity, each
 # then looping on "ping"), answered by 8 SDK workers (sticky) over gRPC;
 # a signal each, then RemoteHistory.serving_read of every workflow (a
 # cold miss that seats it), a second signal each, then a second read (a
@@ -5271,7 +5292,7 @@ def phase_worker_store(torch, np, S, P, RC, unpack, smi, p8,
 # in-process answer; the schema verbs on a sqlite file; the CLI's Onebox
 # server started, pinged and ended by SIGTERM; a pprof device trace around
 # one serving tick
-ENTRY_SHARDS, ENTRY_WORKFLOWS, ENTRY_WORKERS = 4, 1024, 8
+ENTRY_SHARDS, ENTRY_WORKFLOWS, ENTRY_WORKERS = 4, 512, 8
 ENTRY_BUSY_READS, ENTRY_WAIT_S, ENTRY_READY_S = 256, 300.0, 120.0
 ENTRY_PINGS = 256
 ENTRY_DOMAIN, ENTRY_TASK_LIST = "entry-domain", "entry-tl"
@@ -6579,6 +6600,200 @@ def phase_chaos(RC, unpack, smi, device="cuda"):
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the static-analysis gate and the trace demo
+# --------------------------------------------------------------------------
+
+ANALYSIS_GATE_TIMEOUT_S = 240
+TRACE_DEMO_TIMEOUT_S = 180
+ANALYSIS_GATE_ARGS = ("-m", "cadence_tpu_torch.analysis", "--strict-stale",
+                      "--device", "cuda")
+TRACE_DEMO_ARGS = ("-m", "cadence_tpu_torch.testing.trace_demo", "--quiet")
+# the probe arms on the card, each against the plain step on the CPU
+PROBE_ARMS = ("replay_rows", "replay_rows[int16]", "replay_rows_packed")
+
+
+def start_child(args):
+    """A child process of this script, started beside phase 18's
+    in-process probe; its output (tens of kB) fits the pipes until read."""
+    return subprocess.Popen(
+        [sys.executable, *args], cwd=str(ROOT), env=cli_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def child_output(proc, name, timeout_s):
+    """(exit code, stdout, stderr) of a child; fails if it has not ended
+    ``timeout_s`` after this call (the caller kills it)."""
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        check(False, f"{name} did not end in {timeout_s} s")
+    return proc.returncode, out, err
+
+
+def analysis_gate_result(child):
+    """(a) the gate's child: ``python -m cadence_tpu_torch.analysis
+    --strict-stale --device cuda``, its surface pass probing the FSM
+    kernel on the card: exit code, findings and baselined counts by
+    pass, stale entries, and its wall by its own summary line."""
+    rc, out, err = child_output(child, "the analysis gate",
+                                ANALYSIS_GATE_TIMEOUT_S)
+    by_pass = {}
+    for line in out.splitlines():
+        if line.startswith("== pass "):
+            words = line.split()
+            by_pass[words[2].rstrip(":")] = {
+                "findings": int(words[3]), "baselined": int(words[5])}
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith("cadence_tpu_torch.analysis:")]
+    rec = {"command": " ".join(ANALYSIS_GATE_ARGS), "exit_code": rc,
+           "by_pass": by_pass, "summary": summary[-1] if summary else None,
+           "stale_lines": [ln for ln in err.splitlines()
+                           if "stale baseline entry" in ln],
+           "wall_s": (float(summary[-1].rsplit(" in ", 1)[1].rstrip("s"))
+                      if summary else None)}
+    check(rc == 0, f"the analysis gate exited {rc}: {out[-2000:]} "
+          f"{err[-2000:]}")
+    check(summary and " 0 new, 0 stale " in summary[-1],
+          f"the analysis gate's summary: {summary}")
+    return rec
+
+
+def phase_analysis_surface(torch, np, RC, AC):
+    """(b) the transition-surface probe on the card: ``replay_rows``
+    (int32, then the int16 narrow stream) and ``replay_rows_packed``,
+    each matrix against the plain step's label for label and every
+    probe's rows bit for bit, ``diff_surface`` against the baselined
+    findings; then every affine group through ``replay_assoc(impl=
+    "segscan")`` on the card, its written sets and rows against the
+    FSM's. Returns (record, FSM launches, scan launches)."""
+    from cadence_tpu_torch.analysis import load_baselines, scope_baseline
+    from cadence_tpu_torch.analysis import oracle_ast
+    from cadence_tpu_torch.analysis import transition_surface as TS
+    from cadence_tpu_torch.ops.assoc import assoc_types
+    from cadence_tpu_torch.ops.replay import TYPE_GROUPS
+
+    rel = oracle_ast.extract_rel_ts_attrs(
+        (ROOT / "cadence_tpu_torch" / "ops" / "pack.py").read_text())
+    _, otable, pack_handled, _ = TS.build(str(ROOT), "cpu")
+    surface_bl = scope_baseline(load_baselines(), ["surface"])
+    t0 = time.perf_counter()
+    plain = TS.probe("replay_rows_plain", "cpu", rel)
+    plain_wall = time.perf_counter() - t0
+    rec = {"groups": len(plain.matrix.groups), "probes": len(plain.outputs),
+           "lanes_per_probe": {
+               str(k[0]): int(v.shape[1])
+               for k, v in plain.outputs.items() if k[1] == "base"},
+           "plain_wall_s": plain_wall, "arms": {}}
+    fsm_launches = 0
+    fsm_out = None
+    for impl in PROBE_ARMS:
+        RC.replay_rows.launches = 0
+        t0 = time.perf_counter()
+        run = TS.probe(impl, "cuda", rel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = RC.replay_rows.launches
+        fsm_launches += launches
+        diff = sorted(str(k) for k, v in run.outputs.items()
+                      if not np.array_equal(v, plain.outputs[k]))
+        labels = sorted(
+            f"{g.types}" for g, p in zip(run.matrix.groups,
+                                         plain.matrix.groups)
+            if (g.written, g.ts_cols) != (p.written, p.ts_cols))
+        new, _, stale = surface_bl.split(
+            TS.diff_surface(run.matrix, otable, pack_handled))
+        rec["arms"][impl] = {
+            "launches": launches, "wall_s": wall,
+            "matrix_equal": run.matrix == plain.matrix,
+            "groups_differing": labels, "outputs_differing": diff,
+            "new_findings": [f.anchor for f in new],
+            "stale_baseline": [e.anchor for e in stale]}
+        check(run.matrix == plain.matrix and not diff and not labels,
+              f"{impl} on the card: matrix or rows differ from plain: "
+              f"{labels} {diff[:8]}")
+        check(not new and not stale,
+              f"{impl}: diff_surface is not the baselined findings: "
+              f"{[f.anchor for f in new]} {[e.anchor for e in stale]}")
+        check(launches > 0, f"{impl} launched no FSM kernel")
+        if impl == "replay_rows":
+            fsm_out = run
+    affine = [g for g in TYPE_GROUPS
+              if all(int(t) in assoc_types() for t in g)]
+    AC.affine_segscan.launches = 0
+    RC.replay_rows.launches = 0
+    t0 = time.perf_counter()
+    run = TS.probe("replay_assoc[segscan]", "cuda", rel, groups=affine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seg_launches = AC.affine_segscan.launches
+    fsm_in_assoc = RC.replay_rows.launches
+    fsm_launches += fsm_in_assoc
+    fsm_groups = {g.types: g for g in fsm_out.matrix.groups}
+    written_diff = sorted(
+        f"{g.types}" for g in run.matrix.groups
+        if g.written != fsm_groups[g.types].written)
+    diff = sorted(str(k) for k, v in run.outputs.items()
+                  if not np.array_equal(v, fsm_out.outputs[k]))
+    rec["arms"]["replay_assoc[segscan]"] = {
+        "affine_groups": len(affine), "segscan_launches": seg_launches,
+        "fsm_launches": fsm_in_assoc, "wall_s": wall,
+        "written_differing": written_diff, "outputs_differing": diff}
+    check(not written_diff and not diff,
+          f"replay_assoc[segscan] on the card differs from the FSM: "
+          f"{written_diff} {diff[:8]}")
+    check(seg_launches > 0, "the assoc arm launched no scan kernel")
+    return rec, fsm_launches, seg_launches
+
+
+def trace_demo_result(child):
+    """(c) the trace demo's child: ``python -m
+    cadence_tpu_torch.testing.trace_demo`` on the card (its default
+    device): exit code, span count, the services the trace spans."""
+    rc, out, err = child_output(child, "the trace demo", TRACE_DEMO_TIMEOUT_S)
+    check(rc == 0, f"the trace demo exited {rc}: {err[-2000:]}")
+    doc = json.loads(out)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    services = sorted({m["args"]["name"] for m in doc["traceEvents"]
+                       if m.get("ph") == "M"})
+    check(len(spans) >= 6, f"the trace demo's trace has {len(spans)} spans")
+    return {"exit_code": rc, "spans": len(spans), "services": services}
+
+
+def phase_analysis(torch, np, RC, AC, smi):
+    """Phase 18: (a) the gate and (c) the trace demo in child processes,
+    started together, while (b) the transition surface is probed on the
+    card in this process. Returns (FSM launches by route, scan
+    launches)."""
+    t_phase = time.perf_counter()
+    children = []
+    try:
+        gate = start_child(ANALYSIS_GATE_ARGS)
+        children.append(gate)
+        demo = start_child(TRACE_DEMO_ARGS)
+        children.append(demo)
+        surface, fsm_launches, seg_launches = phase_analysis_surface(
+            torch, np, RC, AC)
+        gate_rec = analysis_gate_result(gate)
+        demo_rec = trace_demo_result(demo)
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    emit({"phase": "analysis", "part": "gate", **gate_rec,
+          "nvidia_smi": smi})
+    emit({"phase": "analysis", "part": "surface", **surface,
+          "nvidia_smi": smi})
+    emit({"phase": "analysis", "part": "trace_demo", **demo_rec,
+          "nvidia_smi": smi})
+    emit({"phase": "analysis", "part": "summary",
+          "phase_s": time.perf_counter() - t_phase,
+          "fsm_launches": fsm_launches, "segscan_launches": seg_launches,
+          "nvidia_smi": smi})
+    return {"analysis_surface": fsm_launches}, seg_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6846,9 +7061,14 @@ def main() -> int:
     # by route inside the phase
     chaos_routes = phase_chaos(RC, unpack, smi)
 
-    # 18. kernels and device
+    # 18. the static-analysis gate, the transition surface on the card and
+    # the trace demo, launches counted inside the phase
+    analysis_routes, seg_launches_analysis = phase_analysis(
+        torch, np, RC, AC, smi)
+
+    # 19. kernels and device
     check(launches > 0, "the main path launched no FSM kernel")
-    seg_total = seg_launches + seg_launches_lanes
+    seg_total = seg_launches + seg_launches_lanes + seg_launches_analysis
     check(seg_total > 0, "the assoc path launched no scan kernel")
     t32 = timing["int32"]
     deep = max(packed_timing, key=lambda r: r["T"] * r["lanes"])
@@ -6865,7 +7085,8 @@ def main() -> int:
         + sum(topology_launches.values())
         + sum(worker_launches.values())
         + sum(entry_launches.values())
-        + sum(chaos_routes.values()),
+        + sum(chaos_routes.values())
+        + sum(analysis_routes.values()),
         "max_abs_err": max(rand_err, tick_kernel["max_abs_err"]),
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -6907,7 +7128,7 @@ def main() -> int:
                               **service_launches, **frontend_launches,
                               **replication_launches, **topology_launches,
                               **worker_launches, **entry_launches,
-                              **chaos_routes},
+                              **chaos_routes, **analysis_routes},
     }, {
         "name": "affine_segscan", "route": "cuda",
         "source": "cadence_tpu_torch/ops/csrc/affine_segscan.cu",
@@ -6918,6 +7139,10 @@ def main() -> int:
         "bound_ms": seg_timing["bound_ms"],
         "bound_by": seg_timing["bound_by"], "library_ms": None,
         "shape": seg_timing["shape"],
+        "launches_by_route": {"replay_assoc": seg_launches,
+                              "replay_assoc_lanes_and_stream":
+                              seg_launches_lanes,
+                              "analysis_surface": seg_launches_analysis},
     }]
     emit({"device_passes": [{
         "name": "refresh_tasks_device", "route": "torch ops",

@@ -15,11 +15,10 @@ The chaos module is registered once as ``tests.port_test_chaos_recovery``
 (``chaos_module``), the module the topology cases import ``ChaosBox``
 from, whichever file loads it first.
 
-One case reads the reference's Pass 5 (``analysis/queue_effects``, which
-the port has no copy of): ``handler_footprints`` runs over the port's
-handler sources, through a directory whose ``cadence_tpu`` entry links to
-``cadence_tpu_torch``, so the recorded effects of the port's handlers are
-held against the footprints extracted from the port's own code.
+One case reads Pass 5 (``analysis/queue_effects``): the rewrite makes it
+the port's own copy, whose ``handler_footprints`` runs over the port's
+handler sources, so the recorded effects of the port's handlers are held
+against the footprints extracted from the port's own code.
 
 Besides: the same ``FaultSchedule.from_dicts`` rules and call sequence
 plan the same faults in both packages, the port's Pass 3 is clean against
@@ -32,10 +31,8 @@ from __future__ import annotations
 import functools
 import importlib
 import inspect
-import os
 import re
 import sys
-import tempfile
 import types
 from pathlib import Path
 
@@ -56,23 +53,10 @@ _BOUND_IN_MODULES = (
     ("cadence_tpu_torch.ops.replay", "replay_packed_lanes"),
 )
 CHAOS_MODULE = "tests.port_test_chaos_recovery"
-_QUEUE_EFFECTS_IMPORT = "from cadence_tpu.analysis import queue_effects"
-
-
-def _port_handler_footprints(_repo_root):
-    """The reference's Pass 5 footprints of the port's handler sources."""
-    from cadence_tpu.analysis import queue_effects
-
-    with tempfile.TemporaryDirectory(prefix="port_queue_effects_") as root:
-        os.symlink(REPO / "cadence_tpu_torch",
-                   os.path.join(root, "cadence_tpu"))
-        return queue_effects.handler_footprints(root)
 
 
 def port_source(src: str) -> str:
     """A reference test module's source, on the port."""
-    src = src.replace(_QUEUE_EFFECTS_IMPORT,
-                      "queue_effects = _PORT_QUEUE_EFFECTS")
     src = src.replace("from tests.test_chaos_recovery import",
                       f"from {CHAOS_MODULE} import")
     src = src.replace('"lock_witness.json"', '"torch_lock_witness.json"')
@@ -83,9 +67,7 @@ def port_source(src: str) -> str:
 
 def _exec(name: str, module: str) -> dict:
     path = REPO / "tests" / f"{name}.py"
-    ns = {"__name__": module, "__file__": str(path),
-          "_PORT_QUEUE_EFFECTS": types.SimpleNamespace(
-              handler_footprints=_port_handler_footprints)}
+    ns = {"__name__": module, "__file__": str(path)}
     exec(compile(port_source(path.read_text()), str(path), "exec"), ns)
     for cls in _DEVICE_BOUND:
         if cls in ns:

@@ -23,8 +23,10 @@ The port's ``heap_top`` and the reference's share the process's one
 reference case in the same worker still gets the "tracemalloc started"
 reply to its first heap request.
 
-Left out, each with its reason (``LEFT_OUT``): the cases that need a
-module the port has not yet, and the ``setup_env`` half of
+``test_pprof.py``'s trace demo runs the port's
+``testing/trace_demo`` in its child process with ``--device cpu``.
+
+Left out, with its reason (``LEFT_OUT``): the ``setup_env`` half of
 ``test_environment_module_defaults``.
 """
 
@@ -72,9 +74,6 @@ SOURCES = {
 }
 # what is not run on the port, and why
 LEFT_OUT = {
-    "test_pprof::test_trace_demo_script_smoke":
-        "runs testing/trace_demo.py, which the port has not yet (ROADMAP "
-        "A.14)",
     "test_config_bootstrap::test_environment_module_defaults, setup_env":
         "setup_env pins JAX's platform and virtual mesh; the port's "
         "environment module carries no JAX knobs",
@@ -98,6 +97,8 @@ _IN_BODY = {
     "test_telemetry": (
         '["cadence_tpu/utils/tracing.py"]',
         '["cadence_tpu_torch/utils/tracing.py"]'),
+    # the trace demo's child process: the port's demo on the CPU
+    "test_pprof": ('"--quiet"],', '"--quiet", "--device", "cpu"],'),
 }
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder",
                  "ReplicatorQueueProcessor", "ResidentEngine", "Onebox",
@@ -197,7 +198,7 @@ def test_reference_cases_found():
         "test_cli_workflow": 1,
         "test_cli_dlq": 5,
         "test_canary": 1,
-        "test_pprof": 4,
+        "test_pprof": 5,
         "test_service_plane": 2,
         "test_overload": 2,
         "test_frontend": 1,
