@@ -25,6 +25,15 @@ ones in ``lanes_assoc`` mode, staged through the same pinned copy
 stream. A batch with a nonaffine type keeps the sequential kernel.
 ``"auto"`` and ``"scan"`` always run the sequential kernel.
 
+Device-step telemetry (``utils/metrics_defs.DEVICE_METRICS``) is off
+unless a metrics scope is wired in (``metrics=``, not None and not the
+shared ``NOOP``). Then every batch reports its staging time, padding,
+lane occupancy and width as it is staged, and its step time once the
+replay's stream has finished it: the run pump synchronises that stream
+after each batch, which is the cost of the mode (the pack pump still
+overlaps). The batch's tags are ``layer=device``, ``kernel=cuda`` on the
+card or ``kernel=plain`` on the CPU, and its ``mode``.
+
 Usage::
 
     with DeviceDispatcher(caps) as d:
@@ -40,17 +49,40 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+from time import perf_counter
 from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.log import get_logger
+from ..utils.metrics import NOOP, Scope
+from . import _build
 from . import schema as S
 from .assoc import _assoc_core, assoc_lanes_operands, classify_types
 from .grid import round_scan_len, staging_depth
 from .pack import pack_histories, pack_lanes
 from .replay import check_scan_mode, type_signature
 from .replay_cuda import narrow_events_teb, replay_scan_packed, replay_scan_teb
+
+_log = get_logger("cadence_tpu_torch.ops.dispatch")
+
+# the growth baseline of the loaded kernel libraries (jit_retraces) lives
+# at module scope, as the libraries do: the rebuilder builds a dispatcher
+# per rebuild_many call, and a baseline per dispatcher would miss a load
+# that happens between two of them
+_libs_baseline_lock = threading.Lock()
+_libs_prev: Optional[int] = None
+
+
+def _libs_growth(entries: int) -> int:
+    global _libs_prev
+    with _libs_baseline_lock:
+        prev = _libs_prev
+        _libs_prev = entries
+    if prev is not None and entries > prev:
+        return entries - prev
+    return 0
 
 
 class DispatchError(Exception):
@@ -131,8 +163,11 @@ class DeviceDispatcher:
     ``tb``: lane packing aligns segments to it (``pack_lanes(seg_align=
     tb)``, as the reference dispatcher packs); the packed route itself
     needs no alignment. ``scan_mode="assoc"`` sends affine batches to the
-    parallel-in-time replay (module docstring). Results come back in
-    submission order from :meth:`results`."""
+    parallel-in-time replay (module docstring). ``metrics``: a ``Scope``
+    for the device-step telemetry (module docstring); None or ``NOOP``
+    turns it off, and then the pumps neither time nor synchronise
+    anything. Results come back in submission order from
+    :meth:`results`."""
 
     def __init__(
         self,
@@ -144,11 +179,16 @@ class DeviceDispatcher:
         lane_pack: bool = False,
         lane_len: Optional[int] = None,
         scan_mode: str = "auto",
+        metrics: Optional[Scope] = None,
         device="cuda",
     ) -> None:
         check_scan_mode(scan_mode)
         self.caps = caps or S.Capacities()
         self.device = S.resolve_device(device)
+        self._telemetry = metrics is not None and metrics is not NOOP
+        self._metrics = (metrics if metrics is not None else NOOP).tagged(
+            layer="device")
+        self._kernel_tag = "cuda" if self.device.type == "cuda" else "plain"
         self.narrow = narrow
         # threaded into pack_workflow: side-table target domains must be
         # resolved ids
@@ -202,7 +242,11 @@ class DeviceDispatcher:
                 return
             batch_id, histories, resume = item
             try:
+                t0 = perf_counter() if self._telemetry else 0.0
                 staged = self._pack(batch_id, histories, resume)
+                if self._telemetry:
+                    self._emit(self._emit_stage_telemetry, staged,
+                               histories, perf_counter() - t0)
                 # blocks when `depth` batches are already staged
                 self._staged.put(staged)
             except Exception as e:
@@ -313,9 +357,68 @@ class DeviceDispatcher:
                 self._out.put(item)
                 continue
             try:
-                self._out.put((item.batch_id, item.packed, self._replay(item)))
+                t0 = perf_counter() if self._telemetry else 0.0
+                final = self._replay(item)
+                if self._telemetry:
+                    if item.ready is not None:
+                        # the step ends when the replay's stream has run
+                        # it; a fault of the replay raises here, as it
+                        # would where the result is read
+                        torch.cuda.current_stream(self.device).synchronize()
+                    self._emit(self._emit_step_telemetry, item.mode,
+                               perf_counter() - t0)
+                self._out.put((item.batch_id, item.packed, final))
             except Exception as e:
                 self._out.put(DispatchError(item.batch_id, e))
+
+    # -- device-step telemetry ---------------------------------------------
+
+    def _emit(self, emission, *args) -> None:
+        """Run one emission: a fault of the telemetry never fails the
+        batch it describes."""
+        try:
+            emission(*args)
+        except Exception as e:
+            _log.debug("device telemetry emission failed", error=repr(e))
+
+    def _device_scope(self, mode: str) -> Scope:
+        return self._metrics.tagged(kernel=self._kernel_tag, mode=mode)
+
+    def _emit_stage_telemetry(self, staged: _Staged, histories,
+                              stage_s: float) -> None:
+        """A staged batch: pack and H2D enqueue time, padding, lane
+        occupancy and width, by the reference dispatcher's definitions."""
+        scope = self._device_scope(staged.mode)
+        scope.inc("device_batches")
+        scope.record("host_stage_seconds", stage_s)
+        packed = staged.packed
+        if staged.mode.startswith("lanes"):
+            # the packer's own waste and occupancy
+            padding = packed.padding_frac
+            width = packed.lanes
+            if packed.lanes:
+                scope.gauge("lane_occupancy",
+                            packed.n_histories / packed.lanes)
+        else:
+            cells = packed.batch * packed.events.shape[1]
+            real = sum(history_depth(h[2]) for h in histories)
+            padding = (cells - real) / max(real, 1)
+            width = packed.batch
+        scope.gauge("padding_frac", padding)
+        scope.tagged(width=str(width)).inc("batch_width")
+
+    def _emit_step_telemetry(self, mode: str, step_s: float) -> None:
+        """A replayed batch: its step time, and the kernel libraries
+        loaded so far with their growth since the last batch: the port's
+        counterpart of the reference's jit caches (a library loaded on
+        the serving path is its compile), read without building
+        anything; 0 on the CPU."""
+        self._device_scope(mode).record("device_step_seconds", step_s)
+        entries = len(_build._libs)
+        self._metrics.gauge("jit_cache_entries", entries)
+        grown = _libs_growth(entries)
+        if grown:
+            self._metrics.inc("jit_retraces", grown)
 
     def _replay(self, item: _Staged) -> S.StateTensors:
         if item.ready is not None:
@@ -417,6 +520,7 @@ def replay_stream(
     resume: Optional[Sequence] = None,
     scan_mode: str = "auto",
     narrow: bool = True,
+    metrics: Optional[Scope] = None,
     device="cuda",
 ) -> List[Tuple]:
     """Replay a large history stream through the pipelined dispatcher.
@@ -433,7 +537,7 @@ def replay_stream(
     ``resume``: optional per-history Optional[ops.pack.ResumeState]
     aligned with ``histories``: resumed entries carry their event suffix
     and replay from the snapshot row; a resumed run buckets by its suffix
-    depth."""
+    depth. ``metrics``: the dispatcher's device-step telemetry scope."""
     out: List[Tuple] = []
     resume = list(resume) if resume is not None else [None] * len(histories)
     if len(resume) != len(histories):
@@ -450,7 +554,7 @@ def replay_stream(
         with DeviceDispatcher(
                 caps=caps, depth=staging_depth(len(plan), depth),
                 narrow=narrow, lane_pack=True, lane_len=lane_len,
-                scan_mode=scan_mode, device=device) as d:
+                scan_mode=scan_mode, metrics=metrics, device=device) as d:
             for sub, hs in plan:
                 d.submit(sub, hs, resume=[resume[i] for i in sub]
                          if any_resume else None)
@@ -463,7 +567,7 @@ def replay_stream(
     with DeviceDispatcher(
             caps=caps, depth=staging_depth(n_batches, depth), narrow=narrow,
             lane_pack=lane_pack, lane_len=lane_len, scan_mode=scan_mode,
-            device=device) as d:
+            metrics=metrics, device=device) as d:
         for i in range(0, len(histories), batch_size):
             d.submit(i, histories[i : i + batch_size],
                      resume=resume[i : i + batch_size] if any_resume

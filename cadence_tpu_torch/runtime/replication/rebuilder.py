@@ -27,7 +27,8 @@ event suffix past it (the snapshot row seeds the lane's carry), and one
 at the branch tip skips the device (rehydrate and refresh only). Any
 checkpoint-plane failure degrades that request to a full replay.
 
-Not ported yet: the dispatcher's device-step metrics.
+The metrics scope also reaches the dispatcher, which then reports its
+device-step telemetry (``DEVICE_METRICS``) for every rebuilt batch.
 """
 
 from __future__ import annotations
@@ -108,7 +109,9 @@ class StateRebuilder:
     ``history_read`` (checkpoint consult and history read),
     ``dispatch_wait`` (waiting for the dispatcher's packed and replayed
     batches), ``rehydrate`` (rows to MutableStates, task refresh,
-    checkpoint writes) and ``host_fallback``.
+    checkpoint writes) and ``host_fallback``. The raw scope goes to the
+    dispatcher too, for its device-step telemetry (``layer=device``);
+    None turns off every plane together.
     """
 
     def __init__(self, history: HistoryManager,
@@ -123,6 +126,7 @@ class StateRebuilder:
         self.checkpoints = checkpoints
         self.serving = serving
         self.device = device
+        self._raw_metrics = metrics
         scope = metrics if metrics is not None else NOOP
         self._metrics = scope.tagged(layer="checkpoint")
         self._rebuild_metrics = scope.tagged(layer="rebuild")
@@ -355,7 +359,7 @@ class StateRebuilder:
         with DeviceDispatcher(
             caps=caps, depth=staging_depth(len(plan)),
             domain_resolver=self.domain_resolver, lane_pack=True,
-            lane_len=self.lane_len, device=dev,
+            lane_len=self.lane_len, metrics=self._raw_metrics, device=dev,
         ) as d:
             for sub, hs in plan:
                 d.submit(

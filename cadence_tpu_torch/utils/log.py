@@ -32,6 +32,12 @@ class Logger:
         self._log = logging.getLogger(name)
         self._tags = dict(tags or {})
 
+    def with_tags(self, **tags: Any) -> "Logger":
+        """A child logger carrying these tags beside its own."""
+        merged = dict(self._tags)
+        merged.update(tags)
+        return Logger(self._log.name, merged)
+
     def _fmt(self, msg: str, tags: Dict[str, Any]) -> str:
         merged = dict(self._tags)
         merged.update(tags)
@@ -39,6 +45,9 @@ class Logger:
             kv = " ".join(f"{k}={v}" for k, v in merged.items())
             return f"{msg} | {kv}"
         return msg
+
+    def debug(self, msg: str, **tags: Any) -> None:
+        self._log.debug(self._fmt(msg, tags))
 
     def info(self, msg: str, **tags: Any) -> None:
         self._log.info(self._fmt(msg, tags))

@@ -241,6 +241,12 @@ class Registry:
                     agg.merge(hist)
         return TimerStats(agg)
 
+    def timer_quantile(
+        self, name: str, q: float, tags: Optional[Dict[str, str]] = None,
+    ) -> float:
+        """Histogram-backed quantile in seconds (0.0 when unobserved)."""
+        return self.timer_stats(name, tags).quantile(q)
+
     def snapshot(self) -> Dict[str, Dict]:
         # copy raw state under the lock, then do the expensive part —
         # per-series quantile walks and key formatting — OUTSIDE it: a

@@ -27,8 +27,9 @@ plane's self-telemetry (``TELEMETRY_METRICS``), plus the port's own
 rebuilder and tick timers (``REBUILD_METRICS``,
 ``SERVING_TICK_METRICS``). The analysis gate's
 ``METRIC-UNDECLARED`` holds every literal emission to them.
-``DEVICE_METRICS`` is declared but not yet emitted: the port's
-dispatcher takes no metrics scope.
+``DEVICE_METRICS`` comes from the dispatcher (``ops/dispatch.py``) when a
+scope is wired into it, directly, through ``replay_stream(metrics=)`` or
+through ``StateRebuilder(metrics=)``.
 """
 
 from __future__ import annotations
@@ -273,11 +274,15 @@ CHECKPOINT_METRICS = (
 # the serving-path work (METRIC-UNDECLARED keeps this list honest).
 ENGINE_METRICS = ("workflow_started",)
 
-# device-step kernel telemetry (ops/dispatch.py): the reference's
-# dispatcher emits these per staged/replayed batch under tags
-# (layer=device, kernel=..., mode=hist|lanes|hist_assoc|lanes_assoc);
-# the port's dispatcher takes no metrics scope yet, so they are declared
-# here and emitted nowhere:
+# device-step kernel telemetry (ops/dispatch.py), emitted per staged and
+# replayed batch when the dispatcher has a metrics scope, under tags
+# (layer=device, kernel=cuda|plain, mode=hist|lanes|hist_assoc|
+# lanes_assoc): kernel=cuda for a batch on the card (the hand-written
+# kernels), kernel=plain for one on the CPU (their plain versions). The
+# reference package's xla|pallas name its two routes; the port's routes
+# are these two. jit_cache_entries / jit_retraces read the port's
+# counterpart of a compile: the kernel libraries ops/_build.py has loaded
+# (0 on the CPU), and a library loaded after a batch is a "retrace":
 #
 #   device_batches       counter — batches replayed
 #   host_stage_seconds   histogram — pack + H2D staging wall time
@@ -290,11 +295,11 @@ ENGINE_METRICS = ("workflow_started",)
 #                        batch (the lane packer's waste)
 #   lane_occupancy       gauge — histories per lane of the last
 #                        lane-packed batch
-#   jit_cache_entries    gauge — total compiled executables across the
-#                        replay kernels visible to this dispatcher
-#   jit_retraces         counter — cache-size growth observed after a
-#                        batch (a retrace storm shows up here first,
-#                        without re-running offline profiles)
+#   jit_cache_entries    gauge — kernel libraries loaded in this
+#                        process (ops/_build.py)
+#   jit_retraces         counter — growth of that count observed after a
+#                        batch (a build on the serving path shows up
+#                        here first)
 DEVICE_METRICS = (
     "device_batches",
     "host_stage_seconds",

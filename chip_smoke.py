@@ -21,19 +21,26 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    narrow, with kernel timing (CUDA events) against the memory bound,
    and the kernel's launch geometry; then the reference bench's replay
    step on the same device-resident events, ``replay_scan_teb`` and
-   ``refresh_tasks_device`` (``ops/refresh.py``): the refresh's time,
-   launches (torch.profiler) and bound, the step's histories/s, the
+   ``refresh_tasks_device`` (``ops/refresh.py``): the refresh's and the
+   step's times three ways (CUDA events around the eager launches, the
+   launches' summed device time under torch.profiler, a CUDA graph's
+   replay), the refresh's launches and bound, the step's histories/s, the
    card's refresh against the CPU's on every lane and a seeded 256
    hydrated against the host refresher; the compiled baseline
    (``native.replay_sequential`` on the first 256 histories, its state
    against the kernel's, ``baseline_cpp_per_sec`` and ``vs_baseline``
    with the host CPU's model); the sidecar's scatters at full width
    against their numpy paths, byte for byte and timed;
-4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix,
-   every snapshot against the plain route on the CPU, its FSM launches
+4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix, with
+   a metrics scope wired in, every snapshot against the plain route on
+   the CPU and against the same stream without a scope, its FSM launches
    (one per packed batch), its device-busy share (torch.profiler), the
-   packed route's time per batch against its bound, and the refresh of
-   the deepest batch's output snapshots on the card against the CPU's;
+   packed route's time per batch against its bound, the dispatcher's
+   device-step telemetry against the batches it ran (``device_telemetry``:
+   counts, widths, occupancy and padding against the packers', no kernel
+   library loaded after the warm-up, each step at least its kernel's
+   time), and the refresh of the deepest batch's output snapshots on the
+   card against the CPU's;
 5. ``segscan_vs_plain`` (run right after phase 2, outside the counted
    windows): the segmented affine-scan kernel against its plain version
    on seeded random streams (L = 4,096, C = 24, T = 1,024 and 1,000;
@@ -44,8 +51,10 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    field, with the scan kernel's time at the path's operands and the FSM
    kernel's time against its bound at the same lanes;
 7. ``assoc_lanes``: ``replay_assoc_lanes(impl="segscan")`` and
-   ``replay_stream(scan_mode="assoc")``, bucketed and unbucketed, on the
-   phase-4 mix, every snapshot against the FSM route's;
+   ``replay_stream(scan_mode="assoc")``, bucketed (with a metrics scope:
+   the ``lanes_assoc`` batches' device telemetry, checked as phase 4's
+   but for the kernel time) and unbucketed, on the phase-4 mix, every
+   snapshot against the FSM route's;
 8. ``rebuild``: the rebuild path, ``StateRebuilder.rebuild_many`` on the
    card with the rebuilder's default capacities (R_pad = 944): the
    reference bench's ``rebuild_warm`` cell at its chip size (256
@@ -53,8 +62,15 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    pass, every rebuilt run against the host oracle ``rebuild()``), the
    p50 and p99 of one rebuild request on the card and on the host
    oracle, an ``ndc_storm`` rebuild storm (1,024 fuzzed histories, a
-   seeded sample against the host oracle), and the FSM kernel's time at
-   the cold pass's batch against its bound;
+   seeded sample against the host oracle and against the card without a
+   metrics scope), and the FSM kernel's time at the cold pass's batch
+   against its bound; every rebuilder there has a metrics scope, so
+   the dispatcher's device-step telemetry is on (each one-request rebuild
+   also runs without a scope, the arms alternating); the cohort's cold pass
+   once more without a scope and once with a fresh one
+   (``rebuild_telemetry``: both walls, the telemetry against the batches
+   and each step against the kernel's time at its batch), the storm's
+   telemetry likewise;
 9. ``serving``: the serving plane, ``ResidentEngine`` on the card, every
    resident row checked against the card's cold replay of the same
    history: (a) the reference bench's ``serve_continuous`` cell at its
@@ -395,6 +411,31 @@ def cuda_ms_each(fn, reps: int = 21, warmup: int = 2):
         b.record()
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in ev]
+
+
+def graph_ms_each(torch, fn, reps: int = 21):
+    """Device milliseconds of each of ``reps`` replays of a CUDA graph
+    that captured one call of ``fn`` (one pair of CUDA events a replay):
+    the device's time for the call's work without the host's launch
+    overhead. ``fn`` warms up on a side stream first, as capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    each = cuda_ms_each(graph.replay, reps=reps)
+    del graph
+    return each
+
+
+def median_split(each):
+    """{"": median, "_min": least, "_max": largest} of a list of ms."""
+    each = sorted(each)
+    return {"": each[len(each) // 2], "_min": each[0], "_max": each[-1]}
 
 
 def smi_clocks() -> str:
@@ -771,9 +812,13 @@ def refresh_bound(state, refreshed):
 
 
 def refresh_on_card(torch, S, R, final):
-    """The refresh of a device-resident ``final`` on the card: the median
-    of 21 CUDA-event timings, its device launches (torch.profiler), its
-    bound, and every field against the same refresh on the CPU."""
+    """The refresh of a device-resident ``final`` on the card, timed three
+    ways: the median of 21 CUDA-event timings around its eager launches
+    (``ms``: the host's launch rate shows in it), the summed device time
+    of its launches under torch.profiler (``device_ms``) and the median
+    of 21 replays of a CUDA graph of it (``graph_ms``); its device
+    launches, its bound, and every field against the same refresh on
+    the CPU."""
     got = R.refresh_tasks_device(final)
     torch.cuda.synchronize()
     want = R.refresh_tasks_device(final.map(lambda x: x.cpu()))
@@ -782,8 +827,13 @@ def refresh_on_card(torch, S, R, final):
                 or not torch.equal(getattr(got, f).cpu(), getattr(want, f))]
     each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(final)))
     prof = device_busy(torch, lambda: R.refresh_tasks_device(final))
+    graph = median_split(graph_ms_each(
+        torch, lambda: R.refresh_tasks_device(final)))
     rec = dict(lanes=final.exec_info.shape[0], ms=each[len(each) // 2],
                ms_min=each[0], ms_max=each[-1],
+               device_ms=prof["device_ms"],
+               device_busy_ms=prof["device_busy_ms"],
+               **{f"graph_ms{k}": v for k, v in graph.items()},
                launches=prof["device_activities"],
                launch_names=prof["top_ms"], fields_diverged=diverged,
                dtypes={f: str(getattr(got, f).dtype).replace("torch.", "")
@@ -797,7 +847,10 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
     """bench.py's unpacked replay step at full width, device-resident:
     ``replay_scan_teb`` then ``refresh_tasks_device``. The card's refresh
     against the CPU's on every lane; a seeded sample hydrated against
-    the host refresher on the rehydrated rows."""
+    the host refresher on the rehydrated rows. The step and its refresh
+    are each timed three ways (``refresh_on_card``): eager CUDA events,
+    summed device time, a CUDA graph's replay; the step's device time
+    and its graph must exceed its refresh's."""
     from cadence_tpu_torch.core.task_refresher import refresh_tasks
 
     caps, tiled = m["caps"], m["tiled"]
@@ -819,6 +872,8 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
         return R.refresh_tasks_device(RC.replay_scan_teb(state0, evd, caps))
     step_each = sorted(cuda_ms_each(step, reps=11))
     step_ms = step_each[len(step_each) // 2]
+    step_prof = device_busy(torch, step)
+    step_graph = median_split(graph_ms_each(torch, step, reps=11))
 
     t0 = time.perf_counter()
     tasks = R.refreshed_to_numpy(refreshed)
@@ -837,10 +892,17 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
     torch.cuda.empty_cache()
     rec.update(step_ms=step_ms, step_ms_min=step_each[0],
                step_ms_max=step_each[-1],
+               step_device_ms=step_prof["device_ms"],
+               step_launches=step_prof["device_activities"],
+               **{f"step_graph_ms{k}": v for k, v in step_graph.items()},
                histories_per_sec=n / (step_ms * 1e-3),
                refreshed_to_numpy_s=d2h_s, hydrate_sample=len(sample),
                hydrate_tasks=n_tasks, hydrate_mismatches=mism)
     check(mism == 0, f"{mism} hydrated lanes differ from the host refresher")
+    check(rec["step_device_ms"] > rec["device_ms"]
+          and rec["step_graph_ms"] > rec["graph_ms"],
+          "the replay + refresh step took less device time than its "
+          f"refresh: {rec}")
     return rec
 
 
@@ -1277,6 +1339,86 @@ def time_packed(torch, np, S, RC, caps, results):
     return out
 
 
+# -- device-step telemetry (phases 4, 7, 8) -------------------------------
+
+
+def registry_log(scope):
+    """Every gauge and timer sample written to ``scope``'s registry, in
+    the order written: a gauge keeps only its last value, a timer only
+    its histogram, and the checks below read each batch's."""
+    log = []
+    reg = scope.registry
+    for kind in ("gauge", "record"):
+        def logged(name, tags, value, write=getattr(reg, kind)):
+            log.append((name, dict(tags), value))
+            write(name, tags, value)
+        setattr(reg, kind, logged)
+    return log
+
+
+def device_telemetry(np, scope, log, packs, mode, kernel_ms=None):
+    """The dispatcher's device-step telemetry of one wired run against
+    the batches it ran (``packs``: their packers' ``PackedLanes``, in
+    submission order) and, where given, each batch's FSM kernel ms:
+    ``device_batches`` and the stage and step counts equal the batches,
+    the ``batch_width`` counters sum to them (one per lane count), every
+    batch's ``lane_occupancy`` is above 0 and equals its packer's, its
+    ``padding_frac`` equals its packer's, no kernel library was loaded
+    after the warm-up (``jit_retraces`` 0), and each batch's step took at
+    least its kernel's time, the step p50 at least the kernels' median.
+    Returns the record; fails the run where a check does not hold."""
+    reg = scope.registry
+
+    def logged(name):
+        return [v for n, t, v in log
+                if n == name and t.get("layer") == "device"]
+    step_s, stage_s = logged("device_step_seconds"), logged(
+        "host_stage_seconds")
+    occ, pad = logged("lane_occupancy"), logged("padding_frac")
+    with reg._lock:
+        widths = {dict(t)["width"]: v for (n, t), v in reg._counters.items()
+                  if n == "batch_width"}
+    from collections import Counter
+
+    want_widths = Counter(str(p.lanes) for p in packs)
+    n = len(packs)
+    rec = dict(
+        mode=mode, batches=n,
+        device_batches=reg.counter_value("device_batches"),
+        device_batches_in_mode=reg.counter_value("device_batches", {
+            "layer": "device", "kernel": "cuda", "mode": mode}),
+        host_stage_n=reg.timer_stats("host_stage_seconds").count,
+        device_step_n=reg.timer_stats("device_step_seconds").count,
+        batch_width=widths, lane_occupancy=occ,
+        padding_frac=pad, packer_padding_frac=[p.padding_frac for p in packs],
+        jit_cache_entries=reg.gauge_value("jit_cache_entries"),
+        jit_retraces=reg.counter_value("jit_retraces"),
+        host_stage_ms=[x * 1e3 for x in stage_s],
+        device_step_ms=[x * 1e3 for x in step_s],
+        device_step_p50_ms=reg.timer_quantile("device_step_seconds", 0.5)
+        * 1e3, kernel_ms=kernel_ms)
+    check(rec["device_batches"] == rec["device_batches_in_mode"] == n
+          == rec["host_stage_n"] == rec["device_step_n"] == len(step_s)
+          == len(stage_s), f"device telemetry counted other batches than "
+          f"the {n} that ran: {rec}")
+    check(widths == want_widths, f"batch_width {widths} against the "
+          f"packers' lane counts {dict(want_widths)}")
+    check(occ == [p.n_histories / p.lanes for p in packs]
+          and all(x > 0 for x in occ),
+          f"lane_occupancy {occ} against the packers'")
+    check(pad == rec["packer_padding_frac"],
+          f"padding_frac {pad} against the packers' "
+          f"{rec['packer_padding_frac']}")
+    check(rec["jit_retraces"] == 0,
+          f"{rec['jit_retraces']} kernel libraries loaded after the warm-up")
+    if kernel_ms is not None:
+        check(len(kernel_ms) == n and all(
+            s * 1e3 >= k for s, k in zip(step_s, kernel_ms))
+            and rec["device_step_p50_ms"] >= float(np.median(kernel_ms)),
+            f"a device step took less than its FSM kernel: {rec}")
+    return rec
+
+
 # -- phase 8: the rebuild path ------------------------------------------
 
 
@@ -1364,13 +1506,26 @@ def storm_cohort():
     from cadence_tpu_torch.testing.event_generator import HistoryFuzzer
 
     hist = MemoryHistoryManager()
-    reqs, events = [], 0
+    reqs, hs, events = [], [], 0
     for i in range(STORM_N):
         batches = W.ndc_storm_history(HistoryFuzzer(seed=STORM_SEED + i),
                                       depth=STORM_DEPTH)
         events += sum(len(b) for b in batches)
         reqs.append(store_run(hist, i, batches))
-    return dict(hist=hist, reqs=reqs, events=events)
+        hs.append((f"wf-{i}", f"run-{i}", batches))
+    return dict(hist=hist, reqs=reqs, hs=hs, events=events)
+
+
+def rebuild_packs(P, hs):
+    """The lane packs the rebuilder's dispatcher makes of histories
+    ``hs`` on the card: one batch a depth bucket at the default
+    capacities, segments aligned to its ``tb``."""
+    from cadence_tpu_torch.ops.dispatch import depth_buckets
+    from cadence_tpu_torch.ops.schema import Capacities
+
+    return [P.pack_lanes(bhs, caps=Capacities(),
+                         target_lane_len=REBUILD_LANE_LEN, seg_align=16)
+            for _, bhs in depth_buckets(hs)]
 
 
 def timed_passes(rb, reqs, iters):
@@ -1417,7 +1572,7 @@ def percentiles(np, ms):
             "p99_ms": float(np.percentile(ms, 99)), "n": len(ms)}
 
 
-def phase_rebuild(torch, np, unpack, RC):
+def phase_rebuild(torch, np, P, unpack, RC):
     """Drive the rebuild path on the card; returns the phase record
     (its checks applied) and the FSM launches it made. The caller
     times the kernel at the path's batch afterwards."""
@@ -1457,14 +1612,33 @@ def phase_rebuild(torch, np, unpack, RC):
                            store, CheckpointPolicy(every_events=1 << 30,
                                                    keep_last=1))),
         reqs, WARM_ITERS)
+    # device-step telemetry: the cohort's cold pass without a metrics
+    # scope, then with a fresh one (cold_scope above carries it too); the
+    # difference is the price of the mode's synchronise per batch
+    t0 = time.perf_counter()
+    bare_out = StateRebuilder(hist, lane_len=REBUILD_LANE_LEN).rebuild_many(
+        reqs)
+    bare_s = time.perf_counter() - t0
+    tele_scope = Scope()
+    tele_log = registry_log(tele_scope)
+    t0 = time.perf_counter()
+    tele_out = StateRebuilder(hist, lane_len=REBUILD_LANE_LEN,
+                              metrics=tele_scope).rebuild_many(reqs)
+    tele_s = time.perf_counter() - t0
     one_scope = Scope()
     one = StateRebuilder(hist, lane_len=REBUILD_LANE_LEN, metrics=one_scope)
-    one_ms, one_out = [], []
-    for r in reqs[:P50_REQUESTS]:
-        t0 = time.perf_counter()
-        one_out += one.rebuild_many([r])
-        one_ms.append((time.perf_counter() - t0) * 1e3)
+    # each request also through a rebuilder without a scope, the two
+    # arms alternating which goes first: telemetry's price on one request
+    bare_one = StateRebuilder(hist, lane_len=REBUILD_LANE_LEN)
+    one_ms, one_out, bare_ms = [], [], []
+    for k, r in enumerate(reqs[:P50_REQUESTS]):
+        arms = [(one, one_ms, one_out), (bare_one, bare_ms, [])]
+        for rb, ms, out in arms if k % 2 == 0 else arms[::-1]:
+            t0 = time.perf_counter()
+            out += rb.rebuild_many([r])
+            ms.append((time.perf_counter() - t0) * 1e3)
     storm_scope = Scope()
+    storm_log = registry_log(storm_scope)
     storm_out, storm_wall, storm_fsm_ms = fsm_profiled(
         torch, lambda: StateRebuilder(
             storm["hist"], lane_len=REBUILD_LANE_LEN,
@@ -1483,11 +1657,27 @@ def phase_rebuild(torch, np, unpack, RC):
         rebuild_key(unpack, storm_out[i])
         != rebuild_key(unpack, storm_rb.rebuild(storm["reqs"][i]))
         for i in sample)
+    # the storm's sample once more on the card, without a metrics scope
+    storm_bare = StateRebuilder(
+        storm["hist"], lane_len=REBUILD_LANE_LEN).rebuild_many(
+            [storm["reqs"][i] for i in sample])
     mism = {name: sum(rebuild_key(unpack, g) != w
                       for g, w in zip(out, oracle))
             for name, out in (("cold", cold_out), ("warm", warm_out),
-                              ("one_request", one_out))}
+                              ("one_request", one_out),
+                              ("cold_unwired", bare_out),
+                              ("cold_wired", tele_out))}
     mism["storm_sample"] = storm_mism
+    mism["storm_sample_unwired"] = sum(
+        rebuild_key(unpack, storm_out[i]) != rebuild_key(unpack, b)
+        for i, b in zip(sample, storm_bare))
+    storm_tele = device_telemetry(np, storm_scope, storm_log,
+                                  rebuild_packs(P, storm["hs"]), "lanes",
+                                  storm_fsm_ms)
+    c["telemetry"] = dict(scope=tele_scope, log=tele_log,
+                          rehydrated=tele_scope.registry.timer_stats(
+                              "rehydrate").count,
+                          wired_s=tele_s, unwired_s=bare_s, storm=storm_tele)
 
     # phase 15 holds its durable rebuilds against these
     c["cold_keys"] = [rebuild_key(unpack, g) for g in cold_out]
@@ -1524,6 +1714,7 @@ def phase_rebuild(torch, np, unpack, RC):
         },
         "rebuild_one_request": {
             "card": percentiles(np, one_ms),
+            "card_unwired": percentiles(np, bare_ms),
             "card_wall_split": wall_split(one_scope, P50_REQUESTS),
             "host_oracle": percentiles(np, host_ms[:P50_REQUESTS]),
             "host_oracle_all_256": percentiles(np, host_ms),
@@ -1539,6 +1730,7 @@ def phase_rebuild(torch, np, unpack, RC):
             "fsm_ms_per_batch": storm_fsm_ms,
             "wall_split": wall_split(storm_scope, 1),
             "sample": STORM_SAMPLE, "profiled": True,
+            "device_telemetry": storm_tele,
         },
         "fsm_launches": launches,
         "mismatches": mism,
@@ -1558,21 +1750,35 @@ def phase_rebuild(torch, np, unpack, RC):
     return rec, launches, c
 
 
+def rebuild_telemetry(np, c, rebuild_kernel, smi):
+    """The cohort's wired cold pass (phase 8) against the batches the
+    dispatcher ran (``time_rebuild_kernel``'s packs), each step against
+    the FSM kernel's CUDA-event time at that batch (int16: the
+    dispatcher narrows), its wall beside the unwired pass's; emits the
+    line."""
+    t, packs = c["telemetry"], c["packs"]
+    rec = device_telemetry(np, t["scope"], t["log"], packs, "lanes",
+                           [r["int16"]["ms"] for r in rebuild_kernel])
+    check(t["rehydrated"] == len(packs), f"the wired pass rehydrated "
+          f"{t['rehydrated']} batches, not {len(packs)}")
+    emit({"phase": "rebuild_telemetry", "histories": WARM_N,
+          "cold_pass_wired_s": t["wired_s"],
+          "cold_pass_unwired_s": t["unwired_s"],
+          "wired_over_unwired": t["wired_s"] / t["unwired_s"],
+          "rebuild_warm": rec, "ndc_storm": t["storm"], "nvidia_smi": smi})
+
+
 def time_rebuild_kernel(torch, np, S, P, RC, c):
     """The FSM kernel at the cold pass's batch: the cohort's histories
     packed as the dispatcher packs them, at the rebuilder's default
     capacities. There R_pad is 944 (152 at the retry_deep caps): a block
     holds 32 lanes, one warp an SM, and 256 histories fill 8 of the
     card's 132 SMs, so the launch is latency-bound."""
-    from cadence_tpu_torch.ops.dispatch import depth_buckets
-
     caps = S.Capacities()
     hs = [(f"wf-{i}", f"run-{i}", b) for i, b in enumerate(c["full"])]
-    packs = [(None, P.pack_lanes(bhs, caps=caps,
-                                 target_lane_len=REBUILD_LANE_LEN,
-                                 seg_align=16), None)
-             for _, bhs in depth_buckets(hs)]
-    rec = time_packed(torch, np, S, RC, caps, packs)
+    c["packs"] = rebuild_packs(P, hs)
+    rec = time_packed(torch, np, S, RC, caps,
+                      [(None, p, None) for p in c["packs"]])
     for r in rec:
         r["R_pad"] = RC.RowMap(caps).rows_padded
         r["lanes_per_block"] = RC.lanes_per_block(r["R_pad"], r["lanes"])
@@ -6819,6 +7025,7 @@ def main() -> int:
     from cadence_tpu_torch.ops.dispatch import depth_buckets, replay_stream
     from cadence_tpu_torch.ops.replay import replay_packed
     from cadence_tpu_torch.testing import workloads as W
+    from cadence_tpu_torch.utils.metrics import Scope
 
     # 1. device and build
     smi = phase_device(torch, _build, native)
@@ -6838,8 +7045,11 @@ def main() -> int:
     RC.replay_rows.launches = 0
     m = phase_main_path(torch, np, S, P, RC, replay_packed)
     launches_packed = RC.replay_rows.launches
+    # the bucketed stream with the dispatcher's device-step telemetry on
+    stream_scope = Scope()
+    stream_log = registry_log(stream_scope)
     stream_res, stream_wall = phase_stream(torch, S, replay_stream, mixed,
-                                           bucket=True)
+                                           bucket=True, metrics=stream_scope)
     launches_stream = RC.replay_rows.launches - launches_packed
     hist_res, hist_wall = phase_stream(torch, S, replay_stream, mixed,
                                        batch_size=1024)
@@ -6893,11 +7103,18 @@ def main() -> int:
     got_hist = stream_snapshots(hist_res, len(mixed), unpack)
     mism = sum(g != w for g, w in zip(got, want))
     mism_hist = sum(g != w for g, w in zip(got_hist, want))
-    # one more (warm) bucketed stream under the profiler, then the packed
-    # route alone at each of its batches
-    busy = device_busy(torch, lambda: replay_stream(
-        mixed, caps=caps, bucket=True, device="cuda"))
+    # one more (warm) bucketed stream under the profiler, without a
+    # metrics scope, then the packed route alone at each of its batches
+    bare = []
+    busy = device_busy(torch, lambda: bare.extend(replay_stream(
+        mixed, caps=caps, bucket=True, device="cuda")))
+    bare = [(i, p, S.state_to_numpy(f)) for i, p, f in bare]
+    mism_bare = sum(g != w for g, w in zip(
+        got, stream_snapshots(bare, len(mixed), unpack)))
     packed_timing = time_packed(torch, np, S, RC, caps, stream_res)
+    stream_tele = device_telemetry(
+        np, stream_scope, stream_log, [p for _, p, _ in stream_res], "lanes",
+        [r["int16"]["ms"] for r in packed_timing])
     stream_step = stream_refresh(torch, np, S, RC, R, caps, stream_res)
     emit({"phase": "stream", "route": "replay_stream(bucket=True)",
           "histories": len(mixed), "shallow": N_SHALLOW, "deep": N_DEEP,
@@ -6907,13 +7124,16 @@ def main() -> int:
           "host_pack_only_s": pack_only, "plain_cpu_wall_s": plain_wall,
           "fsm_launches": launches_stream, "device_busy": busy,
           "packed_route": packed_timing, "replay_refresh_step": stream_step,
-          "snapshot_mismatches": mism,
+          "device_telemetry": stream_tele,
+          "snapshot_mismatches": mism, "unwired_mismatches": mism_bare,
           "unbucketed": {"batch_size": 1024, "batches": len(hist_res),
                          "wall_s": hist_wall, "fsm_launches": launches_hist,
                          "snapshot_mismatches": mism_hist}})
-    check(not (mism or mism_hist or None in got or None in got_hist),
+    check(not (mism or mism_hist or mism_bare or None in got
+               or None in got_hist),
           f"stream snapshots differ from plain: {mism} bucketed, "
-          f"{mism_hist} unbucketed")
+          f"{mism_hist} unbucketed; {mism_bare} from the stream without "
+          "telemetry")
     check(launches_stream == len(stream_res),
           f"the bucketed stream launched the FSM kernel {launches_stream} "
           f"times for {len(stream_res)} packed batches")
@@ -6977,8 +7197,11 @@ def main() -> int:
     lanes_final = A.replay_assoc_lanes(lanes_pk, impl="segscan",
                                        device="cuda")
     lanes_wall = time.perf_counter() - t0
+    assoc_scope = Scope()
+    assoc_log = registry_log(assoc_scope)
     stream_assoc, stream_assoc_wall = phase_stream(
-        torch, S, replay_stream, mixed, bucket=True, scan_mode="assoc")
+        torch, S, replay_stream, mixed, bucket=True, scan_mode="assoc",
+        metrics=assoc_scope)
     hist_assoc, hist_assoc_wall = phase_stream(
         torch, S, replay_stream, mixed, batch_size=1024, scan_mode="assoc")
     seg_launches_lanes = AC.affine_segscan.launches
@@ -6990,11 +7213,16 @@ def main() -> int:
     mism_lanes = sum(g != w for g, w in zip(got_lanes, got))
     mism_sa = sum(g != w for g, w in zip(got_sa, got))
     mism_ha = sum(g != w for g, w in zip(got_ha, got))
+    # the parallel-in-time batches run no FSM kernel to hold a step against
+    assoc_tele = device_telemetry(np, assoc_scope, assoc_log,
+                                  [p for _, p, _ in stream_assoc],
+                                  "lanes_assoc")
     emit({"phase": "assoc_lanes", "histories": len(mixed),
           "lanes": lanes_pk.lanes, "scan_len": lanes_pk.scan_len,
           "replay_assoc_lanes_segscan_wall_s": lanes_wall,
           "stream_assoc_wall_s": stream_assoc_wall,
           "stream_assoc_batches": len(stream_assoc),
+          "stream_assoc_device_telemetry": assoc_tele,
           "unbucketed_assoc": {"batch_size": 1024,
                                "batches": len(hist_assoc),
                                "wall_s": hist_assoc_wall},
@@ -7010,8 +7238,10 @@ def main() -> int:
 
     # 8. the rebuild path, launches counted from zero inside the phase;
     # then the kernel at the path's batch, outside the counted window
-    rebuild, launches_rebuild, cohort = phase_rebuild(torch, np, unpack, RC)
+    rebuild, launches_rebuild, cohort = phase_rebuild(torch, np, P, unpack,
+                                                      RC)
     rebuild_kernel = time_rebuild_kernel(torch, np, S, P, RC, cohort)
+    rebuild_telemetry(np, cohort, rebuild_kernel, smi)
     # phase 15 holds its durable rebuilds against phase 8's
     p8 = {"rec": rebuild, "cold_keys": cohort["cold_keys"]}
     del cohort
@@ -7148,10 +7378,13 @@ def main() -> int:
         "name": "refresh_tasks_device", "route": "torch ops",
         "source": "cadence_tpu_torch/ops/refresh.py",
         "replaces": "cadence_tpu/ops/refresh.py:79",
-        **{k: step[k] for k in ("lanes", "launches", "ms", "bound_ms",
-                                "bound_by", "step_ms", "histories_per_sec")},
+        **{k: step[k] for k in ("lanes", "launches", "ms", "device_ms",
+                                "graph_ms", "bound_ms", "bound_by",
+                                "step_ms", "step_device_ms", "step_graph_ms",
+                                "histories_per_sec")},
         "stream": {k: stream_step[k] for k in (
-            "lanes", "launches", "ms", "bound_ms", "bound_by", "step_ms")},
+            "lanes", "launches", "ms", "device_ms", "graph_ms", "bound_ms",
+            "bound_by", "step_ms")},
     }]})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})

@@ -69,8 +69,10 @@ SOURCES = {
         "TestOneboxTrace::test_rpc_hop_joins_the_same_trace",
         "TestOneboxTrace::test_rpc_without_context_roots_nothing_at_rate_zero",
         "test_telemetry_metrics_tuple_covers_everything_emitted",
+        "TestDeviceTelemetry",
+        "test_device_metrics_tuple_covers_everything_emitted",
     ),
-    "test_utils": ("test_registry_series_cap_overflow_sink",),
+    "test_utils": None,
 }
 # what is not run on the port, and why
 LEFT_OUT = {
@@ -85,20 +87,30 @@ _SETUP_ENV_HALF = '''
     assert env["JAX_PLATFORMS"] == "cpu"
     assert "device_count=8" in env["XLA_FLAGS"]
 '''
-# entry points imported inside a test body, and how each reaches the CPU
+# entry points imported inside a test body, and how each reaches the CPU:
+# (old, new) rewrites of the source, each of which must apply
 _IN_BODY = {
     "test_two_process_plane": (
-        "history = HistoryService(%(num_shards)d, bundle, domains, monitor)",
-        'history = HistoryService(%(num_shards)d, bundle, domains, monitor, '
-        'device="cpu")'),
+        ("history = HistoryService(%(num_shards)d, bundle, domains, monitor)",
+         'history = HistoryService(%(num_shards)d, bundle, domains, monitor, '
+         'device="cpu")'),),
     "test_overload": (
-        'cfg, services=["history", "matching", "frontend"]',
-        'cfg, services=["history", "matching", "frontend"], device="cpu"'),
+        ('cfg, services=["history", "matching", "frontend"]',
+         'cfg, services=["history", "matching", "frontend"], device="cpu"'),),
     "test_telemetry": (
-        '["cadence_tpu/utils/tracing.py"]',
-        '["cadence_tpu_torch/utils/tracing.py"]'),
+        ('["cadence_tpu/utils/tracing.py"]',
+         '["cadence_tpu_torch/utils/tracing.py"]'),
+        ('["cadence_tpu/ops/dispatch.py"]',
+         '["cadence_tpu_torch/ops/dispatch.py"]'),
+        # the device-step telemetry: the port's replay_stream takes a
+        # device where the reference's takes its kernel route
+        ('kernel="xla"', 'device="cpu"'),
+        ("d = DeviceDispatcher()", 'd = DeviceDispatcher(device="cpu")'),
+        ("DeviceDispatcher(metrics=NOOP)",
+         'DeviceDispatcher(metrics=NOOP, device="cpu")'),
+    ),
     # the trace demo's child process: the port's demo on the CPU
-    "test_pprof": ('"--quiet"],', '"--quiet", "--device", "cpu"],'),
+    "test_pprof": (('"--quiet"],', '"--quiet", "--device", "cpu"],'),),
 }
 _DEVICE_BOUND = ("HistoryService", "StateRebuilder",
                  "ReplicatorQueueProcessor", "ResidentEngine", "Onebox",
@@ -145,8 +157,7 @@ def _load(name: str) -> dict:
     if name == "test_config_bootstrap":
         assert _SETUP_ENV_HALF in src
         src = src.replace(_SETUP_ENV_HALF, "\n")
-    if name in _IN_BODY:
-        old, new = _IN_BODY[name]
+    for old, new in _IN_BODY.get(name, ()):
         assert old in src, (name, old)
         src = src.replace(old, new)
     return _exec(name, _port_source(src), f"tests.port_{name}")
@@ -202,8 +213,8 @@ def test_reference_cases_found():
         "test_service_plane": 2,
         "test_overload": 2,
         "test_frontend": 1,
-        "test_telemetry": 5,
-        "test_utils": 1,
+        "test_telemetry": 9,
+        "test_utils": 16,
     }
     # the transport cases build the port's Cluster, not the reference's
     xdc = _xdc_module()

@@ -327,3 +327,25 @@ def test_history_store_matches_reference():
         br.branch_id]
     with pytest.raises(ValueError, match="empty event batch"):
         hist.append_history_nodes(br, [], transaction_id=1)
+
+
+def test_rebuilder_wires_its_scope_into_the_dispatcher(mixed):
+    """The rebuilder's scope reaches the dispatcher: the same device
+    batches as the reference rebuilder's on the same requests, a step
+    time for each, and the same rebuilt runs as without a scope."""
+    from cadence_tpu.utils.metrics import Scope as JScope
+
+    jhist, jreqs, hist, reqs = mixed
+    metrics, jmetrics = Scope(), JScope()
+    got = StateRebuilder(hist, lane_len=256, device="cpu",
+                         metrics=metrics).rebuild_many(reqs)
+    JStateRebuilder(jhist, lane_len=256, metrics=jmetrics).rebuild_many(jreqs)
+    reg = metrics.registry
+    batches = reg.counter_value("device_batches")
+    assert batches == jmetrics.registry.counter_value("device_batches") > 1
+    assert batches == reg.timer_stats("rehydrate").count
+    assert reg.timer_stats("device_step_seconds").count == batches
+    assert reg.counter_value("device_batches", {
+        "layer": "device", "kernel": "plain", "mode": "lanes"}) == batches
+    bare = StateRebuilder(hist, lane_len=256, device="cpu").rebuild_many(reqs)
+    assert_same_rebuilds(got, bare)
