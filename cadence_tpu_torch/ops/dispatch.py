@@ -29,10 +29,19 @@ Device-step telemetry (``utils/metrics_defs.DEVICE_METRICS``) is off
 unless a metrics scope is wired in (``metrics=``, not None and not the
 shared ``NOOP``). Then every batch reports its staging time, padding,
 lane occupancy and width as it is staged, and its step time once the
-replay's stream has finished it: the run pump synchronises that stream
-after each batch, which is the cost of the mode (the pack pump still
-overlaps). The batch's tags are ``layer=device``, ``kernel=cuda`` on the
-card or ``kernel=plain`` on the CPU, and its ``mode``.
+replay's stream has finished it. On the card the step is timed by a
+pair of timing events recorded on the replay's stream around the
+batch's replay, read once the end event has completed: the run pump
+queries the batches on the card before each further one and waits for
+the rest at the end of the stream, so nothing synchronises per batch.
+On the CPU the step is the host's time of the replay. The batch's tags
+are ``layer=device``, ``kernel=cuda`` on the card or ``kernel=plain`` on
+the CPU, and its ``mode``.
+
+The pack-and-stage and replay steps run inside the spans
+``cadence.dispatch.stage`` and ``cadence.dispatch.replay``
+(``utils/tracing.device_span``), so a device trace puts the copy
+stream's transfers and the replay's kernels under them.
 
 Usage::
 
@@ -49,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+from collections import deque
 from time import perf_counter
 from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
@@ -57,6 +67,7 @@ import torch
 
 from ..utils.log import get_logger
 from ..utils.metrics import NOOP, Scope
+from ..utils.tracing import device_span
 from . import _build
 from . import schema as S
 from .assoc import _assoc_core, assoc_lanes_operands, classify_types
@@ -66,6 +77,9 @@ from .replay import check_scan_mode, type_signature
 from .replay_cuda import narrow_events_teb, replay_scan_packed, replay_scan_teb
 
 _log = get_logger("cadence_tpu_torch.ops.dispatch")
+
+STAGE_SPAN = "cadence.dispatch.stage"
+REPLAY_SPAN = "cadence.dispatch.replay"
 
 # the growth baseline of the loaded kernel libraries (jit_retraces) lives
 # at module scope, as the libraries do: the rebuilder builds a dispatcher
@@ -165,9 +179,8 @@ class DeviceDispatcher:
     needs no alignment. ``scan_mode="assoc"`` sends affine batches to the
     parallel-in-time replay (module docstring). ``metrics``: a ``Scope``
     for the device-step telemetry (module docstring); None or ``NOOP``
-    turns it off, and then the pumps neither time nor synchronise
-    anything. Results come back in submission order from
-    :meth:`results`."""
+    turns it off, and then the pumps time nothing. Results come back in
+    submission order from :meth:`results`."""
 
     def __init__(
         self,
@@ -243,7 +256,8 @@ class DeviceDispatcher:
             batch_id, histories, resume = item
             try:
                 t0 = perf_counter() if self._telemetry else 0.0
-                staged = self._pack(batch_id, histories, resume)
+                with device_span(STAGE_SPAN):
+                    staged = self._pack(batch_id, histories, resume)
                 if self._telemetry:
                     self._emit(self._emit_stage_telemetry, staged,
                                histories, perf_counter() - t0)
@@ -348,28 +362,59 @@ class DeviceDispatcher:
         return dev, ready
 
     def _run_pump(self) -> None:
+        # telemetry on the card: (mode, start, end) timing events of the
+        # batches whose step time is not read yet, oldest first
+        timed: deque = deque()
         while True:
             item = self._staged.get()
             if item is None:
+                self._emit_timed(timed, wait=True)
                 self._out.put(None)
                 return
             if isinstance(item, DispatchError):
                 self._out.put(item)
                 continue
             try:
-                t0 = perf_counter() if self._telemetry else 0.0
-                final = self._replay(item)
+                start = t0 = None
                 if self._telemetry:
                     if item.ready is not None:
-                        # the step ends when the replay's stream has run
-                        # it; a fault of the replay raises here, as it
-                        # would where the result is read
-                        torch.cuda.current_stream(self.device).synchronize()
+                        stream = torch.cuda.current_stream(self.device)
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record(stream)
+                    else:
+                        t0 = perf_counter()
+                with device_span(REPLAY_SPAN):
+                    final = self._replay(item)
+                if start is not None:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record(stream)
+                    timed.append((item.mode, start, end))
+                    self._emit_timed(timed, wait=False)
+                elif t0 is not None:
                     self._emit(self._emit_step_telemetry, item.mode,
                                perf_counter() - t0)
                 self._out.put((item.batch_id, item.packed, final))
             except Exception as e:
                 self._out.put(DispatchError(item.batch_id, e))
+
+    def _emit_timed(self, timed: deque, wait: bool) -> None:
+        """Emit the step time of each batch on the card, oldest first,
+        whose end event has completed (every one with ``wait``). A
+        fault of the replay raises where its result is read, not here."""
+        while timed:
+            mode, start, end = timed[0]
+            try:
+                if wait:
+                    end.synchronize()
+                elif not end.query():
+                    return
+                step_s = start.elapsed_time(end) / 1e3
+            except RuntimeError as e:
+                _log.debug("device step timing failed", error=repr(e))
+                step_s = None
+            timed.popleft()
+            if step_s is not None:
+                self._emit(self._emit_step_telemetry, mode, step_s)
 
     # -- device-step telemetry ---------------------------------------------
 

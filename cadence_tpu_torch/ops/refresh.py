@@ -29,11 +29,14 @@ from ..core import tasks as T
 from ..core.enums import TimeoutType, TimerTaskType, WorkflowState
 from ..core.ids import EMPTY_EVENT_ID
 from ..core.mutable_state import SECOND
+from ..utils.tracing import device_span
 from . import schema as S
 from .pack import PackedHistories
 
 _BIG = 2**31 - 1
 _INT32_MIN = -(2**31)
+# the refresh's span on the profiler's timeline (utils/tracing.device_span)
+REFRESH_SPAN = "cadence.refresh"
 
 
 @dataclasses.dataclass
@@ -140,7 +143,13 @@ def _user_timer(tmr: torch.Tensor, running: torch.Tensor) -> torch.Tensor:
 
 def refresh_tasks_device(state: S.StateTensors) -> RefreshedTasks:
     """Outstanding tasks of every workflow in ``state`` (torch tensors,
-    on any device), computed on that device; results stay there."""
+    on any device), computed on that device inside the span
+    ``cadence.refresh``; results stay there."""
+    with device_span(REFRESH_SPAN):
+        return _refresh(state)
+
+
+def _refresh(state: S.StateTensors) -> RefreshedTasks:
     ex = state.exec_info
     if not isinstance(ex, torch.Tensor):
         raise TypeError(

@@ -19,6 +19,12 @@ step. ``replay_rows_packed`` is the lane-packed route in one launch: each
 lane flushes its state into an output row and resets at its own segment
 ends, on any step. All compute the reference's
 ``stateBuilder.applyEvents`` semantics bit for bit.
+
+Each layer runs inside a span of its own on the profiler's timeline
+(``utils/tracing.device_span``): ``cadence.replay.to_rows`` and
+``cadence.replay.from_rows`` around the state's copies into and out of
+the row layout, ``cadence.replay.fsm`` around either route of the two
+kernel wrappers, operand checks and launch included.
 """
 
 from __future__ import annotations
@@ -35,8 +41,15 @@ from ..core.enums import (
     WORKFLOW_CLOSE_STATUS, decision_attempt_increment,
 )
 from ..core.ids import EMPTY_EVENT_ID, EMPTY_VERSION
+from ..utils.tracing import device_span
 
 from . import schema as S
+
+# the layers' spans on the profiler's timeline (utils/tracing.device_span):
+# the state's copies into and out of the row layout, and the FSM replay
+TO_ROWS_SPAN = "cadence.replay.to_rows"
+FSM_SPAN = "cadence.replay.fsm"
+FROM_ROWS_SPAN = "cadence.replay.from_rows"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,46 +98,49 @@ class RowMap:
 
 def state_to_rows(state: S.StateTensors, rm: RowMap) -> torch.Tensor:
     """Torch StateTensors -> contiguous [R_pad, B] int32, batch minor."""
-    b = state.exec_info.shape[0]
-    parts = [
-        state.exec_info.T,
-        state.vh_items.reshape(b, -1).T,
-        state.vh_len[None, :],
-        state.activities.reshape(b, -1).T,
-        state.timers.reshape(b, -1).T,
-        state.children.reshape(b, -1).T,
-        state.cancels.reshape(b, -1).T,
-        state.signals.reshape(b, -1).T,
-    ]
-    pad = rm.rows_padded - rm.rows
-    if pad:
-        parts.append(state.exec_info.new_zeros((pad, b)))
-    return torch.cat(parts, dim=0).to(torch.int32).contiguous()
+    with device_span(TO_ROWS_SPAN):
+        b = state.exec_info.shape[0]
+        parts = [
+            state.exec_info.T,
+            state.vh_items.reshape(b, -1).T,
+            state.vh_len[None, :],
+            state.activities.reshape(b, -1).T,
+            state.timers.reshape(b, -1).T,
+            state.children.reshape(b, -1).T,
+            state.cancels.reshape(b, -1).T,
+            state.signals.reshape(b, -1).T,
+        ]
+        pad = rm.rows_padded - rm.rows
+        if pad:
+            parts.append(state.exec_info.new_zeros((pad, b)))
+        return torch.cat(parts, dim=0).to(torch.int32).contiguous()
 
 
 def rows_to_state(rows: torch.Tensor, rm: RowMap) -> S.StateTensors:
+    """Contiguous [R_pad, B] rows -> torch StateTensors, batch major."""
     caps = rm.caps
     b = rows.shape[1]
 
     def take(r0, n, shape):
         return rows[r0 : r0 + n].T.reshape(shape).contiguous()
 
-    return S.StateTensors(
-        exec_info=take(rm.exec0, S.X_N, (b, S.X_N)),
-        vh_items=take(rm.vh0, 2 * caps.max_version_items,
-                      (b, caps.max_version_items, 2)),
-        vh_len=rows[rm.vhlen].contiguous(),
-        activities=take(rm.act0, caps.max_activities * S.AC_N,
-                        (b, caps.max_activities, S.AC_N)),
-        timers=take(rm.tim0, caps.max_timers * S.TI_N,
-                    (b, caps.max_timers, S.TI_N)),
-        children=take(rm.chd0, caps.max_children * S.CH_N,
-                      (b, caps.max_children, S.CH_N)),
-        cancels=take(rm.rc0, caps.max_request_cancels * S.RC_N,
-                     (b, caps.max_request_cancels, S.RC_N)),
-        signals=take(rm.sg0, caps.max_signals_ext * S.SG_N,
-                     (b, caps.max_signals_ext, S.SG_N)),
-    )
+    with device_span(FROM_ROWS_SPAN):
+        return S.StateTensors(
+            exec_info=take(rm.exec0, S.X_N, (b, S.X_N)),
+            vh_items=take(rm.vh0, 2 * caps.max_version_items,
+                          (b, caps.max_version_items, 2)),
+            vh_len=rows[rm.vhlen].contiguous(),
+            activities=take(rm.act0, caps.max_activities * S.AC_N,
+                            (b, caps.max_activities, S.AC_N)),
+            timers=take(rm.tim0, caps.max_timers * S.TI_N,
+                        (b, caps.max_timers, S.TI_N)),
+            children=take(rm.chd0, caps.max_children * S.CH_N,
+                          (b, caps.max_children, S.CH_N)),
+            cancels=take(rm.rc0, caps.max_request_cancels * S.RC_N,
+                         (b, caps.max_request_cancels, S.RC_N)),
+            signals=take(rm.sg0, caps.max_signals_ext * S.SG_N,
+                         (b, caps.max_signals_ext, S.SG_N)),
+        )
 
 
 # --------------------------------------------------------------------------
@@ -724,16 +740,19 @@ def replay_rows(events: torch.Tensor, rows: torch.Tensor,
     CUDA tensors launch the FSM kernel on the current stream (counted in
     ``replay_rows.launches``); CPU tensors run ``replay_rows_plain``."""
     t1 = events.shape[0] if t1 is None else t1
-    if events.device.type == "cpu" and rows.device.type == "cpu":
-        res = replay_rows_plain(events, rows, caps, base, wide_cols, t0, t1)
+    # either route, its checks and its launch, inside the FSM's span
+    with device_span(FSM_SPAN):
+        if events.device.type == "cpu" and rows.device.type == "cpu":
+            res = replay_rows_plain(events, rows, caps, base, wide_cols,
+                                    t0, t1)
+            if out is None:
+                return res
+            out.copy_(res)
+            return out
         if out is None:
-            return res
-        out.copy_(res)
+            out = torch.empty_like(rows)
+        _launch(events, rows, out, caps, base, wide_cols, t0, t1)
         return out
-    if out is None:
-        out = torch.empty_like(rows)
-    _launch(events, rows, out, caps, base, wide_cols, t0, t1)
-    return out
 
 
 replay_rows.launches = 0
@@ -755,20 +774,21 @@ def replay_rows_packed(events: torch.Tensor, rows: torch.Tensor,
 
     CUDA tensors launch the FSM kernel once (counted in
     ``replay_rows.launches``); CPU tensors run the plain version."""
-    if events.device.type == "cpu" and rows.device.type == "cpu":
-        res, res_out = replay_rows_packed_plain(
-            events, rows, caps, seg_ptr, seg_ends, out_rows, init_rows,
-            base, wide_cols)
-        out_rows.copy_(res_out)
+    with device_span(FSM_SPAN):
+        if events.device.type == "cpu" and rows.device.type == "cpu":
+            res, res_out = replay_rows_packed_plain(
+                events, rows, caps, seg_ptr, seg_ends, out_rows, init_rows,
+                base, wide_cols)
+            out_rows.copy_(res_out)
+            if out is None:
+                return res, out_rows
+            out.copy_(res)
+            return out, out_rows
         if out is None:
-            return res, out_rows
-        out.copy_(res)
+            out = torch.empty_like(rows)
+        _launch(events, rows, out, caps, base, wide_cols, 0,
+                events.shape[0], seg=(seg_ptr, seg_ends, out_rows, init_rows))
         return out, out_rows
-    if out is None:
-        out = torch.empty_like(rows)
-    _launch(events, rows, out, caps, base, wide_cols, 0, events.shape[0],
-            seg=(seg_ptr, seg_ends, out_rows, init_rows))
-    return out, out_rows
 
 
 def kernel_plan(events: torch.Tensor, caps: S.Capacities, base=None,

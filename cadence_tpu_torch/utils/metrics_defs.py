@@ -286,9 +286,11 @@ ENGINE_METRICS = ("workflow_started",)
 #
 #   device_batches       counter — batches replayed
 #   host_stage_seconds   histogram — pack + H2D staging wall time
-#   device_step_seconds  histogram — kernel wall time (the run pump
-#                        blocks on the result when telemetry is on, so
-#                        this is honest device time, not dispatch time)
+#   device_step_seconds  histogram — the batch's replay on the device:
+#                        on the card the elapsed time of a timing-event
+#                        pair on the replay's stream around it (read
+#                        once the end event completes; no synchronise
+#                        per batch), on the CPU the host's time of it
 #   batch_width          histogram — padded batch width per dispatch
 #                        (the compiled-executable grid in action)
 #   padding_frac         gauge — padded slots ÷ real events of the last

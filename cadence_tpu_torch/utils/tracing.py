@@ -30,6 +30,17 @@ bootstrap). Every other entry point — ``span()``, ``annotate()``,
 shared no-op immediately when there is none: the unsampled path is one
 attribute lookup and a None check.
 
+The device timeline: while a torch profiler records (the benchmark's
+traced window, or the pprof device trace, ``POST /debug/pprof/device/
+start``), a sampled span entered as a context manager also opens a
+profiler range of its name (``_profiler_range``), and ``device_span``
+marks a layer of the program (``cadence.replay.fsm``,
+``cadence.refresh``, ...) with such a range even on an unsampled thread.
+A range is a kineto CPU event on the clock of the CUDA kernels and
+copies, so each device activity, and each idle gap, falls under the span
+that launched it. With no profiler, ``device_span`` is the unsampled
+path above plus one module lookup, and torch is never imported here.
+
 A copy of the reference package's ``utils/tracing.py``.
 """
 
@@ -38,6 +49,7 @@ from __future__ import annotations
 import itertools
 import json
 import random
+import sys
 import threading
 import time
 import uuid
@@ -93,9 +105,6 @@ class _NoopSpan:
     def annotate(self, text: str) -> None:
         pass
 
-    def set_tag(self, key: str, value) -> None:
-        pass
-
     def finish(self) -> None:
         pass
 
@@ -110,6 +119,46 @@ class _NoopSpan:
 
 
 NOOP_SPAN = _NoopSpan()
+
+
+def _profiler_range(name: str):
+    """A range named ``name`` for the profiler's timeline while a torch
+    profiler records, else None. Kineto's start (``torch.profiler.
+    profile``, on whichever thread) sets the flag of
+    ``torch.autograd.profiler``, and no profiler runs before torch is
+    imported, so a process without torch pays one dict lookup.
+
+    The range is an op-scope ``RecordFunction`` (kineto's ``cpu_op``), not
+    a ``record_function`` user annotation: kineto mirrors a user
+    annotation onto the device's timeline (``gpu_user_annotation``),
+    which a trace read without activity types cannot tell from a kernel.
+    The device work under the range is found by its launches'
+    correlation ids either way."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    from torch._C._profiler import _RecordFunctionFast
+
+    return _RecordFunctionFast(name)
+
+
+class _ProfilerRange(_NoopSpan):
+    """An unsampled span that is a range on the profiler's timeline
+    alone: ``device_span``'s return while a profiler records and no
+    sampled span is current."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, rng) -> None:
+        self._range = rng
+
+    def __enter__(self) -> "_ProfilerRange":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+
 
 _span_counter = itertools.count(1)
 
@@ -128,7 +177,7 @@ class Span:
     __slots__ = (
         "tracer", "name", "service", "trace_id", "span_id", "parent_id",
         "tags", "annotations", "thread", "start_us", "_t0", "dur_us",
-        "_prev", "error",
+        "_prev", "error", "_range",
     )
 
     def __init__(self, tracer: "Tracer", name: str, service: str,
@@ -150,6 +199,7 @@ class Span:
         self.dur_us: float = 0.0
         self._prev = None
         self.error: str = ""
+        self._range = None
 
     sampled = True
 
@@ -164,9 +214,6 @@ class Span:
             ((time.perf_counter() - self._t0) * 1e6, str(text))
         )
 
-    def set_tag(self, key: str, value) -> None:
-        self.tags[key] = value
-
     def finish(self) -> None:
         if self.dur_us:
             return  # idempotent: a double finish must not double-record
@@ -175,14 +222,29 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._prev = self.tracer._activate(self)
+        # mirrored on the profiler's timeline while one records, so the
+        # kernels this span launches fall under it in the device trace
+        self._range = _profiler_range(self.name)
+        if self._range is not None:
+            self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         if exc_type is not None:
             self.error = exc_type.__name__
             self.tags.setdefault("error", exc_type.__name__)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         self.tracer._deactivate(self._prev)
         self.finish()
+
+
+class _ThreadSpan(threading.local):
+    """A thread's current span. None is the class default, so the
+    unsampled path reads it without a failed lookup."""
+
+    span: Optional[Span] = None
 
 
 class Tracer:
@@ -191,21 +253,20 @@ class Tracer:
 
     def __init__(self, sample_rate: float = 0.0, capacity: int = 4096,
                  bind_capacity: int = 2048, bind_ttl_s: float = 60.0,
-                 metrics: Scope = NOOP,
-                 seed: Optional[int] = None) -> None:
+                 metrics: Scope = NOOP) -> None:
         self.sample_rate = float(sample_rate)
         self.capacity = int(capacity)
         self._bind_capacity = int(bind_capacity)
         self._bind_ttl_s = float(bind_ttl_s)
         self._metrics = metrics.tagged(layer="telemetry")
-        self._rng = random.Random(seed)
+        self._rng = random.Random()
         self._lock = threading.Lock()
         self._spans: deque = deque(maxlen=self.capacity)
         # key -> (context, bound-at monotonic time); LRU + TTL
         self._bindings: "OrderedDict[Any, Tuple[TraceContext, float]]" = (
             OrderedDict()
         )
-        self._tls = threading.local()
+        self._tls = _ThreadSpan()
 
     # -- configuration -------------------------------------------------
 
@@ -229,14 +290,14 @@ class Tracer:
     def current(self) -> Optional[Span]:
         """The thread's active span (None on the unsampled path). THE
         hot-path check: one thread-local attribute read."""
-        return getattr(self._tls, "span", None)
+        return self._tls.span
 
     def current_context(self) -> Optional[TraceContext]:
-        span = getattr(self._tls, "span", None)
+        span = self._tls.span
         return span.ctx if span is not None else None
 
     def _activate(self, span: Optional[Span]) -> Optional[Span]:
-        prev = getattr(self._tls, "span", None)
+        prev = self._tls.span
         self._tls.span = span
         return prev
 
@@ -268,7 +329,7 @@ class Tracer:
         thread's current span. No parent → no-op: children never root
         traces implicitly."""
         if parent is None:
-            parent = getattr(self._tls, "span", None)
+            parent = self._tls.span
             if parent is None:
                 return NOOP_SPAN
         ctx = parent.ctx if isinstance(parent, Span) else parent
@@ -281,7 +342,7 @@ class Tracer:
     def annotate(self, text: str) -> None:
         """Breadcrumb on the current span, if any (the fault injector's
         and retry loops' one-liner)."""
-        span = getattr(self._tls, "span", None)
+        span = self._tls.span
         if span is not None:
             span.annotate(text)
 
@@ -295,7 +356,7 @@ class Tracer:
         timers would otherwise join one ancient sampled request
         forever), and an abandoned binding ages out, never leaks."""
         if ctx is None:
-            span = getattr(self._tls, "span", None)
+            span = self._tls.span
             if span is None:
                 return
             ctx = span.ctx
@@ -330,13 +391,6 @@ class Tracer:
     def spans(self) -> List[Span]:
         with self._lock:
             return list(self._spans)
-
-    def traces(self) -> Dict[str, List[Span]]:
-        """Finished spans grouped by trace, oldest trace first."""
-        out: Dict[str, List[Span]] = {}
-        for s in self.spans():
-            out.setdefault(s.trace_id, []).append(s)
-        return out
 
     def clear(self) -> None:
         with self._lock:
@@ -393,8 +447,19 @@ class Tracer:
 TRACER = Tracer()
 
 
-def current_span() -> Optional[Span]:
-    return TRACER.current()
+def device_span(name: str):
+    """The span of one layer of the program (``cadence.replay.fsm``,
+    ``cadence.refresh``, ...), entered around the work it launches.
+
+    Under a sampled request span on this thread, a child ``Span`` of it
+    (in the flight recorder, and mirrored into a recording profiler);
+    else, while a torch profiler records, a profiler range of ``name``
+    alone; else the shared no-op, after one thread-local read and one
+    module lookup. Callers never branch."""
+    if TRACER._tls.span is not None:
+        return TRACER.span(name)
+    rng = _profiler_range(name)
+    return NOOP_SPAN if rng is None else _ProfilerRange(rng)
 
 
 def annotate(text: str) -> None:
