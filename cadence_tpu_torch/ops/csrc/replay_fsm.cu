@@ -11,14 +11,31 @@
 // memory, and issuing the transition code. Each lane-step reads one event
 // (16 int32 fields, or 16 to 32 int16 columns of the narrow stream); the
 // state is read once and written once per launch (R_pad x 4 bytes per
-// lane against T x 64 bytes of int32 events). The state tile costs
-// 4 x (R_pad - 26) bytes of shared memory per lane (504 B at the
-// retry_deep caps), so only about 8 warps fit an SM: the event stream has
-// to stay in flight without many warps, and those few warps spend their
-// issue slots on the switch's divergent paths (the lanes of a warp replay
-// different histories, so one step runs several event types' code): on
-// the int16 stream, whose bytes take less time, that issue time bounds
-// the kernel (testing/kernel_ablate.py times it).
+// lane against T x 64 bytes of int32 events). The lanes of a warp replay
+// different histories, so one step runs several event types' code, and
+// those divergent paths take issue slots; on the int16 stream, whose
+// bytes take less time, that issue time bounds the kernel
+// (testing/kernel_ablate.py times it). Two routes hold the state:
+// - the shared route keeps a lane's whole state on chip, its slot tables
+//   in the warp's shared tile at 4 x (R_pad - 26) bytes a lane (504 B at
+//   the retry_deep caps, so about 8 warps fit an SM): the event stream
+//   has to stay in flight without many warps;
+// - at wide tables that tile takes the SM's shared memory (114.75 KB a
+//   warp at R_pad 944: one warp an SM), and a lone warp pays the full
+//   latency of every shared access and every divergent path, which no
+//   other warp hides. There the wide route keeps the slot tables in
+//   device memory, in rows_out itself, so that 4 warps share an SM. What
+//   bounds it then is the tables' traffic through L2 and issue: each
+//   table write is a 4-byte store of one lane, a sector of its own where
+//   the warp's lanes write different rows (the lane-minor layout puts one
+//   row of a warp's 32 lanes on one 128-byte line). Nearly every table
+//   access is a store, which does not stall the warp, and the resident
+//   warps hide each other's latency. The event stream, read once, is
+//   copied under an L2 evict-first policy, so that L2 keeps the tables'
+//   lines and merges more of their partial writes before they reach
+//   device memory. ops/replay_cuda.py replay_route
+//   picks the wide route from the shape: where the shared tile holds at
+//   most one warp an SM and the batch needs more than one round of them.
 //
 // What the design does about it:
 // - every warp keeps a private ring of STAGES stages in shared memory,
@@ -30,10 +47,12 @@
 //   applies. The bytes in flight no longer depend on registers or on the
 //   width of a field. The rings are per warp, so warps wait on their own
 //   copies (cp.async.wait_group + __syncwarp) and never on each other;
-// - the launcher takes the deepest ring that keeps the launch at its
-//   fewest rounds of resident blocks: a warp's 1,024 steps run in order,
-//   so the rounds set the time, and within them a deeper ring hides more
-//   memory latency and pays its per-stage wait less often;
+// - on the shared route the launcher takes the deepest ring that keeps
+//   the launch at its fewest rounds of resident blocks: a warp's 1,024
+//   steps run in order, so the rounds set the time, and within them a
+//   deeper ring hides more memory latency and pays its per-stage wait
+//   less often. On the wide route it takes the deepest ring at which
+//   the block (4 warps, ops/replay_cuda.py) is resident on an SM;
 // - events are field-major [T, P, B] with the lane minor, so a stage is
 //   ksteps * P rows of 32 lanes: every request is coalesced, and each
 //   thread reads its fields from shared memory lane-minor, free of bank
@@ -42,21 +61,25 @@
 //   (lo & 0xffff) | hi << 16);
 // - the 25 exec-info rows, which every step's preamble writes at fixed
 //   indices, the version history's length and its last version live in
-//   registers; the version-history items and the slot tables, indexed by
-//   data, live in the warp's shared tile [R_pad - 26][32] int32, so every
-//   row offset inside a table is an immediate. Slot tables are indexed
-//   directly by EV_SLOT, bounds-checked: a slot of -1 or >= cap writes
-//   nothing;
+//   registers; the version-history items, indexed by data, live in the
+//   warp's shared tile, and so do the slot tables on the shared route
+//   (the tile [R_pad - 26][32] int32, every row offset inside a table an
+//   immediate). On the wide route the tile holds the version-history
+//   items alone ([2 * cap_v][32]); the slot tables are read and written
+//   in place in rows_out, after a copy across in coalesced rows where
+//   rows_in is another matrix. Slot tables are indexed directly by
+//   EV_SLOT, bounds-checked: a slot of -1 or >= cap writes nothing;
 // - the sequential time axis of the TPU grid is a loop inside the thread,
 //   and a switch on the event type replaces the TPU's per-group presence
 //   bitmasks. The groups apply in the reference order: the preamble, then
 //   the version history, then the type's group, which reads what the
 //   preamble wrote (decision fail/timeout reads X_CUR_VERSION);
-// - the lane-packed route runs in the same launch: each lane walks its own
-//   list of segment ends (end step, output column, reset column). At an
-//   end step the thread writes its state column to the output column and
-//   reloads it from the reset column of init_rows; a column out of range
-//   writes nothing. The TPU kernel cannot scatter across lanes, so its
+// - the lane-packed route runs in the same launch, on either route: each
+//   lane walks its own list of segment ends (end step, output column,
+//   reset column). At an end step the thread writes its state column (on
+//   the wide route its table rows from rows_out too) to the output column
+//   and reloads it from the reset column of init_rows; a column out of
+//   range writes nothing. The TPU kernel cannot scatter across lanes, so its
 //   packed route flushes between 16-step launches; here one launch covers
 //   every step and segments need no alignment.
 //
@@ -157,10 +180,11 @@ struct Params {
   int exec0, vh0, vhlen, act0, tim0, chd0, rc0, sg0;
   int cap_a, cap_t, cap_c, cap_rc, cap_sg, cap_v;
   int wide_mask;
+  int route;  // 0: the shared route, 1: the wide route
   int phys[EV_N];
   int base[EV_N];
 };
-constexpr int N_PARAMS = 22 + 2 * EV_N;
+constexpr int N_PARAMS = 23 + 2 * EV_N;
 static_assert(sizeof(Params) == N_PARAMS * sizeof(int), "packed params");
 
 // Ring depth per warp: STAGES - 1 stages in flight while one applies.
@@ -185,13 +209,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One request of VEC bytes from global src to shared dst.
-template <int VEC, typename EvT>
-__device__ __forceinline__ void copy_request(EvT* dst, const EvT* src) {
-  if constexpr (VEC == 16) {
+// An L2 policy that evicts first what it covers: the wide route's event
+// stream, read once, so that L2 keeps the slot tables' lines instead.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+// One request of VEC bytes from global src to shared dst; with EVICT,
+// under L2 policy `pol`.
+template <int VEC, bool EVICT, typename EvT>
+__device__ __forceinline__ void copy_request(EvT* dst, const EvT* src,
+                                             uint64_t pol) {
+  if constexpr (VEC == 16 && EVICT) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint"
+                 " [%0], [%1], 16, %2;\n"
+                 ::"r"(d), "l"(src), "l"(pol) : "memory");
+  } else if constexpr (VEC == 16) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  ::"r"(d), "l"(src) : "memory");
+  } else if constexpr ((VEC == 8 || VEC == 4) && EVICT) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global.L2::cache_hint"
+                 " [%0], [%1], %2, %3;\n"
+                 ::"r"(d), "l"(src), "n"(VEC), "l"(pol) : "memory");
   } else if constexpr (VEC == 8 || VEC == 4) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
@@ -207,10 +251,11 @@ __device__ __forceinline__ void copy_request(EvT* dst, const EvT* src) {
 // dst[nrows][32]. A request covers KE lanes; the batch width is a
 // multiple of KE (the launcher chose VEC so), so a request lies wholly
 // inside or wholly past the batch, and past it nothing is copied.
-template <int VEC, typename EvT>
+template <int VEC, bool EVICT, typename EvT>
 __device__ __forceinline__ void fill_rows(const EvT* __restrict__ ev,
                                           EvT* dst, size_t row0, int nrows,
-                                          int B, int b_warp, int lane) {
+                                          int B, int b_warp, int lane,
+                                          uint64_t pol) {
   constexpr int KE = VEC / (int)sizeof(EvT);  // lanes per request
   constexpr int PER_ROW = WARP / KE;          // requests per row
   constexpr int RSTRIDE = WARP / PER_ROW;     // rows per pass of the warp
@@ -222,24 +267,30 @@ __device__ __forceinline__ void fill_rows(const EvT* __restrict__ ev,
   const EvT* src = ev + (row0 + r0) * Bs + lane0;
   EvT* d = dst + r0 * WARP + q * KE;
   for (int r = r0; r < nrows; r += RSTRIDE) {
-    copy_request<VEC>(d, src);
+    copy_request<VEC, EVICT>(d, src, pol);
     src += RSTRIDE * Bs;
     d += RSTRIDE * WARP;
   }
 }
 
-template <typename EvT>
+template <bool EVICT, typename EvT>
 __device__ __forceinline__ void fill_stage(const EvT* __restrict__ ev,
                                            EvT* dst, size_t row0, int nrows,
                                            int B, int b_warp, int lane,
-                                           int vec) {
+                                           int vec, uint64_t pol) {
   switch (vec) {
-    case 16: fill_rows<16>(ev, dst, row0, nrows, B, b_warp, lane); break;
-    case 8: fill_rows<8>(ev, dst, row0, nrows, B, b_warp, lane); break;
-    case 4: fill_rows<4>(ev, dst, row0, nrows, B, b_warp, lane); break;
+    case 16:
+      fill_rows<16, EVICT>(ev, dst, row0, nrows, B, b_warp, lane, pol);
+      break;
+    case 8:
+      fill_rows<8, EVICT>(ev, dst, row0, nrows, B, b_warp, lane, pol);
+      break;
+    case 4:
+      fill_rows<4, EVICT>(ev, dst, row0, nrows, B, b_warp, lane, pol);
+      break;
     default:
       if constexpr (sizeof(EvT) == 2)
-        fill_rows<2>(ev, dst, row0, nrows, B, b_warp, lane);
+        fill_rows<2, EVICT>(ev, dst, row0, nrows, B, b_warp, lane, pol);
       break;
   }
 }
@@ -270,28 +321,43 @@ __device__ __forceinline__ void read_fields(const EvT* tile, const Params& p,
 // ---- the transition table
 
 // A lane's state on chip: the exec rows, the version history's length
-// and the version of its last materialized item in registers; the
-// version-history items and the slot tables in the warp's shared tile.
+// and the version of its last materialized item in registers.
 struct Lane {
   int x[X_ROWS];
   int vh_len;
   int last_ver;
 };
 
-// Shared row r (rebased: rows past the exec rows, the vh_len row left
-// out) of this lane: st[r * WARP], the warp's tile being [rs][32] with
-// the lane offset folded into st by the caller.
-#define SR(r) st[(r) * WARP]
+// Where a lane's rows indexed by data live, in rebased row numbers (the
+// rows past the exec rows, the vh_len row left out): tile(r) in the
+// warp's shared tile [rows][32] (st: this lane's column); tab(r), a slot
+// table's row, in that tile on the shared route and, on the wide route,
+// in the state matrix itself (tb: this lane's column of rows_out
+// [R, B], at matrix row X_ROWS + 1, so that rebased row r is matrix row
+// X_ROWS + 1 + r).
+template <bool WIDE>
+struct Rows {
+  int* st;
+  int* tb;
+  size_t B;
+  __device__ __forceinline__ int& tile(int r) const { return st[r * WARP]; }
+  __device__ __forceinline__ int& tab(int r) const {
+    if constexpr (WIDE) return tb[(size_t)r * B];
+    else return st[r * WARP];
+  }
+};
 
 // The version of the item AddOrUpdateItem reads: the last materialized
 // one, its index clamped to the table (0 with no table).
-__device__ __forceinline__ int last_version(const int* st, const Params& p,
-                                            int vh_len) {
+template <bool WIDE>
+__device__ __forceinline__ int last_version(const Rows<WIDE>& R,
+                                            const Params& p, int vh_len) {
   const int read_idx = min(max(wadd(vh_len, -1), 0), p.cap_v - 1);
-  return read_idx >= 0 ? SR(p.vh0 + 2 * read_idx + 1) : 0;
+  return read_idx >= 0 ? R.tile(p.vh0 + 2 * read_idx + 1) : 0;
 }
 
-__device__ __forceinline__ void apply_step(Lane& s, int* st,
+template <bool WIDE>
+__device__ __forceinline__ void apply_step(Lane& s, const Rows<WIDE>& R,
                                            const Params& p,
                                            const int (&f)[EV_N]) {
   int (&x)[X_ROWS] = s.x;
@@ -325,12 +391,12 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
                                : min(vh_len, cap_v - 1);
     const bool wrote = write_idx >= 0 && write_idx < cap_v;
     if (wrote) {
-      SR(p.vh0 + 2 * write_idx) = ev_id;
-      SR(p.vh0 + 2 * write_idx + 1) = version;
+      R.tile(p.vh0 + 2 * write_idx) = ev_id;
+      R.tile(p.vh0 + 2 * write_idx + 1) = version;
     }
     if (!same) {
       s.vh_len = wadd(vh_len, 1);
-      s.last_ver = wrote ? version : last_version(st, p, s.vh_len);
+      s.last_ver = wrote ? version : last_version(R, p, s.vh_len);
     }
   }
 
@@ -432,35 +498,35 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       if ((unsigned)slot < (unsigned)p.cap_a) {
         const int r = p.act0 + slot * AC_N;
         const int exp_interval = (a5 > 0 && a6 > a2) ? a6 : a2;
-        SR(r + AC_OCC) = 1;
-        SR(r + AC_VERSION) = version;
-        SR(r + AC_SCHEDULE_ID) = ev_id;
-        SR(r + AC_SCHEDULED_BATCH_ID) = bf;
-        SR(r + AC_SCHEDULED_TS) = ts;
-        SR(r + AC_STARTED_ID) = EMPTY_EVENT_ID;
-        SR(r + AC_STARTED_TS) = 0;
-        SR(r + AC_ID_HASH) = a0;
-        SR(r + AC_SCH_TO_START) = a1;
-        SR(r + AC_SCH_TO_CLOSE) = a2;
-        SR(r + AC_START_TO_CLOSE) = a3;
-        SR(r + AC_HEARTBEAT) = a4;
-        SR(r + AC_CANCEL_REQUESTED) = 0;
-        SR(r + AC_CANCEL_REQUEST_ID) = EMPTY_EVENT_ID;
-        SR(r + AC_ATTEMPT) = 0;
-        SR(r + AC_HAS_RETRY) = a5;
-        SR(r + AC_EXPIRATION_TS) = wadd(ts, exp_interval);
-        SR(r + AC_LAST_HB_TS) = 0;
-        SR(r + AC_TIMER_STATUS) = 0;
+        R.tab(r + AC_OCC) = 1;
+        R.tab(r + AC_VERSION) = version;
+        R.tab(r + AC_SCHEDULE_ID) = ev_id;
+        R.tab(r + AC_SCHEDULED_BATCH_ID) = bf;
+        R.tab(r + AC_SCHEDULED_TS) = ts;
+        R.tab(r + AC_STARTED_ID) = EMPTY_EVENT_ID;
+        R.tab(r + AC_STARTED_TS) = 0;
+        R.tab(r + AC_ID_HASH) = a0;
+        R.tab(r + AC_SCH_TO_START) = a1;
+        R.tab(r + AC_SCH_TO_CLOSE) = a2;
+        R.tab(r + AC_START_TO_CLOSE) = a3;
+        R.tab(r + AC_HEARTBEAT) = a4;
+        R.tab(r + AC_CANCEL_REQUESTED) = 0;
+        R.tab(r + AC_CANCEL_REQUEST_ID) = EMPTY_EVENT_ID;
+        R.tab(r + AC_ATTEMPT) = 0;
+        R.tab(r + AC_HAS_RETRY) = a5;
+        R.tab(r + AC_EXPIRATION_TS) = wadd(ts, exp_interval);
+        R.tab(r + AC_LAST_HB_TS) = 0;
+        R.tab(r + AC_TIMER_STATUS) = 0;
       }
       break;
     case ActivityTaskStarted:
       if ((unsigned)slot < (unsigned)p.cap_a) {
         const int r = p.act0 + slot * AC_N;
-        SR(r + AC_VERSION) = version;
-        SR(r + AC_STARTED_ID) = ev_id;
-        SR(r + AC_STARTED_TS) = ts;
-        SR(r + AC_LAST_HB_TS) = ts;
-        SR(r + AC_ATTEMPT) = a1;
+        R.tab(r + AC_VERSION) = version;
+        R.tab(r + AC_STARTED_ID) = ev_id;
+        R.tab(r + AC_STARTED_TS) = ts;
+        R.tab(r + AC_LAST_HB_TS) = ts;
+        R.tab(r + AC_ATTEMPT) = a1;
       }
       break;
     case ActivityTaskCompleted:
@@ -470,15 +536,15 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       if ((unsigned)slot < (unsigned)p.cap_a) {
         const int r = p.act0 + slot * AC_N;
 #pragma unroll
-        for (int c = 0; c < AC_N; ++c) SR(r + c) = 0;
+        for (int c = 0; c < AC_N; ++c) R.tab(r + c) = 0;
       }
       break;
     case ActivityTaskCancelRequested:
       if ((unsigned)slot < (unsigned)p.cap_a) {
         const int r = p.act0 + slot * AC_N;
-        SR(r + AC_VERSION) = version;
-        SR(r + AC_CANCEL_REQUESTED) = 1;
-        SR(r + AC_CANCEL_REQUEST_ID) = ev_id;
+        R.tab(r + AC_VERSION) = version;
+        R.tab(r + AC_CANCEL_REQUESTED) = 1;
+        R.tab(r + AC_CANCEL_REQUEST_ID) = ev_id;
       }
       break;
 
@@ -486,12 +552,12 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
     case TimerStarted:
       if ((unsigned)slot < (unsigned)p.cap_t) {
         const int r = p.tim0 + slot * TI_N;
-        SR(r + TI_OCC) = 1;
-        SR(r + TI_VERSION) = version;
-        SR(r + TI_STARTED_ID) = ev_id;
-        SR(r + TI_ID_HASH) = a0;
-        SR(r + TI_EXPIRY_TS) = wadd(ts, a1);
-        SR(r + TI_STATUS) = 0;
+        R.tab(r + TI_OCC) = 1;
+        R.tab(r + TI_VERSION) = version;
+        R.tab(r + TI_STARTED_ID) = ev_id;
+        R.tab(r + TI_ID_HASH) = a0;
+        R.tab(r + TI_EXPIRY_TS) = wadd(ts, a1);
+        R.tab(r + TI_STATUS) = 0;
       }
       break;
     case TimerFired:
@@ -499,7 +565,7 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       if ((unsigned)slot < (unsigned)p.cap_t) {
         const int r = p.tim0 + slot * TI_N;
 #pragma unroll
-        for (int c = 0; c < TI_N; ++c) SR(r + c) = 0;
+        for (int c = 0; c < TI_N; ++c) R.tab(r + c) = 0;
       }
       break;
 
@@ -507,21 +573,21 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
     case StartChildWorkflowExecutionInitiated:
       if ((unsigned)slot < (unsigned)p.cap_c) {
         const int r = p.chd0 + slot * CH_N;
-        SR(r + CH_OCC) = 1;
-        SR(r + CH_VERSION) = version;
-        SR(r + CH_INITIATED_ID) = ev_id;
-        SR(r + CH_INITIATED_BATCH_ID) = bf;
-        SR(r + CH_STARTED_ID) = EMPTY_EVENT_ID;
-        SR(r + CH_WF_ID_HASH) = a0;
-        SR(r + CH_RUN_ID_HASH) = 0;
-        SR(r + CH_POLICY) = a1;
+        R.tab(r + CH_OCC) = 1;
+        R.tab(r + CH_VERSION) = version;
+        R.tab(r + CH_INITIATED_ID) = ev_id;
+        R.tab(r + CH_INITIATED_BATCH_ID) = bf;
+        R.tab(r + CH_STARTED_ID) = EMPTY_EVENT_ID;
+        R.tab(r + CH_WF_ID_HASH) = a0;
+        R.tab(r + CH_RUN_ID_HASH) = 0;
+        R.tab(r + CH_POLICY) = a1;
       }
       break;
     case ChildWorkflowExecutionStarted:
       if ((unsigned)slot < (unsigned)p.cap_c) {
         const int r = p.chd0 + slot * CH_N;
-        SR(r + CH_STARTED_ID) = ev_id;
-        SR(r + CH_RUN_ID_HASH) = a1;
+        R.tab(r + CH_STARTED_ID) = ev_id;
+        R.tab(r + CH_RUN_ID_HASH) = a1;
       }
       break;
     case StartChildWorkflowExecutionFailed:
@@ -533,7 +599,7 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       if ((unsigned)slot < (unsigned)p.cap_c) {
         const int r = p.chd0 + slot * CH_N;
 #pragma unroll
-        for (int c = 0; c < CH_N; ++c) SR(r + c) = 0;
+        for (int c = 0; c < CH_N; ++c) R.tab(r + c) = 0;
       }
       break;
 
@@ -543,10 +609,10 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       const bool rc = et == RequestCancelExternalWorkflowExecutionInitiated;
       if ((unsigned)slot < (unsigned)(rc ? p.cap_rc : p.cap_sg)) {
         const int r = (rc ? p.rc0 : p.sg0) + slot * EXT_N;
-        SR(r + 0) = 1;
-        SR(r + 1) = version;
-        SR(r + 2) = ev_id;
-        SR(r + 3) = bf;
+        R.tab(r + 0) = 1;
+        R.tab(r + 1) = version;
+        R.tab(r + 2) = ev_id;
+        R.tab(r + 3) = bf;
       }
       break;
     }
@@ -559,7 +625,7 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
       if ((unsigned)slot < (unsigned)(rc ? p.cap_rc : p.cap_sg)) {
         const int r = (rc ? p.rc0 : p.sg0) + slot * EXT_N;
 #pragma unroll
-        for (int c = 0; c < EXT_N; ++c) SR(r + c) = 0;
+        for (int c = 0; c < EXT_N; ++c) R.tab(r + c) = 0;
       }
       break;
     }
@@ -574,33 +640,47 @@ __device__ __forceinline__ void apply_step(Lane& s, int* st,
 }
 
 // Column `col` of a [R, n] int32 matrix <-> this lane's state. Matrix
-// row X_ROWS + r is shared row r, but for the vh_len row (p.vhlen, kept
-// in a register), which shifts the rows after it down by one.
+// row X_ROWS + r is rebased row r, but for the vh_len row (p.vhlen, kept
+// in a register), which shifts the rows after it down by one. The shared
+// route moves every row through the tile; the wide route moves the
+// version-history items through it and, where `tables`, copies the slot
+// tables' rows (and the padding rows past them) between the matrix and
+// rows_out, row by row: one coalesced 128-byte line a row for the warp.
 __device__ __forceinline__ int matrix_row(const Params& p, int r) {
   return X_ROWS + r + (r >= p.vhlen ? 1 : 0);
 }
 
-__device__ __forceinline__ void load_column(Lane& s, int* st,
+template <bool WIDE>
+__device__ __forceinline__ void load_column(Lane& s, const Rows<WIDE>& R,
                                             const Params& p, int rs,
                                             const int* m, size_t n,
-                                            size_t col) {
+                                            size_t col, bool tables) {
 #pragma unroll
   for (int c = 0; c < X_ROWS; ++c) s.x[c] = m[c * n + col];
-  for (int r = 0; r < rs; ++r) SR(r) = m[matrix_row(p, r) * n + col];
+  const int on_tile = WIDE ? p.vhlen : rs;
+  for (int r = 0; r < on_tile; ++r) R.tile(r) = m[matrix_row(p, r) * n + col];
+  if (WIDE && tables)
+    for (int r = p.vhlen; r < rs; ++r)
+      R.tab(r) = m[(X_ROWS + 1 + r) * n + col];
   s.vh_len = m[(X_ROWS + p.vhlen) * n + col];
-  s.last_ver = last_version(st, p, s.vh_len);
+  s.last_ver = last_version(R, p, s.vh_len);
 }
 
-__device__ __forceinline__ void store_column(const Lane& s, const int* st,
+template <bool WIDE>
+__device__ __forceinline__ void store_column(const Lane& s,
+                                             const Rows<WIDE>& R,
                                              const Params& p, int rs,
-                                             int* m, size_t n, size_t col) {
+                                             int* m, size_t n, size_t col,
+                                             bool tables) {
 #pragma unroll
   for (int c = 0; c < X_ROWS; ++c) m[c * n + col] = s.x[c];
-  for (int r = 0; r < rs; ++r) m[matrix_row(p, r) * n + col] = SR(r);
+  const int on_tile = WIDE ? p.vhlen : rs;
+  for (int r = 0; r < on_tile; ++r) m[matrix_row(p, r) * n + col] = R.tile(r);
+  if (WIDE && tables)
+    for (int r = p.vhlen; r < rs; ++r)
+      m[(X_ROWS + 1 + r) * n + col] = R.tab(r);
   m[(X_ROWS + p.vhlen) * n + col] = s.vh_len;
 }
-
-#undef SR
 
 // Segment ends of the packed route: lane b's entries are
 // segs[seg_ptr[b] : seg_ptr[b + 1]], each (end step, output column,
@@ -613,7 +693,7 @@ struct Segments {
   int n_out, n_init;
 };
 
-template <typename EvT>
+template <typename EvT, bool WIDE>
 __global__ void __launch_bounds__(128)
 replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
                   int* rows_out, const Segments sg, const Params p,
@@ -628,17 +708,25 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
   const bool live = b < p.B;
   const size_t B = (size_t)p.B;
   const int rs = p.R - X_ROWS - 1;
+  // rows of a warp's shared tile: every rebased row on the shared route,
+  // the version-history items on the wide route
+  const int tile_rows = WIDE ? p.vhlen : rs;
 
-  // shared memory: each warp's state tile [rs][32], then each warp's
+  // shared memory: each warp's tile [tile_rows][32], then each warp's
   // event ring [STAGES][ksteps * P][32]
-  int* st = reinterpret_cast<int*>(smem) + (size_t)warp * rs * WARP + lane;
+  const Rows<WIDE> R{
+      reinterpret_cast<int*>(smem) + (size_t)warp * tile_rows * WARP + lane,
+      rows_out + (X_ROWS + 1) * B + b, B};
   const int stage_elems = ksteps * p.P * WARP;
-  EvT* ring = reinterpret_cast<EvT*>(smem + (size_t)warps * rs * WARP * 4) +
-              (size_t)warp * STAGES * stage_elems;
+  EvT* ring =
+      reinterpret_cast<EvT*>(smem + (size_t)warps * tile_rows * WARP * 4) +
+      (size_t)warp * STAGES * stage_elems;
 
   Lane ls;
   if (live) {
-    load_column(ls, st, p, rs, rows_in, B, b);
+    // the wide route's tables are already in place where rows_in is
+    // rows_out
+    load_column(ls, R, p, rs, rows_in, B, b, rows_in != rows_out);
   } else {
 #pragma unroll
     for (int c = 0; c < X_ROWS; ++c) ls.x[c] = 0;
@@ -655,11 +743,13 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
   }
 
   const int nstages = (p.t1 - p.t0 + ksteps - 1) / ksteps;
+  // the wide route streams the events past L2's table lines
+  const uint64_t pol = WIDE ? evict_first_policy() : 0;
   auto fill = [&](int s) {
     const int t = p.t0 + s * ksteps;
     const int nk = min(ksteps, p.t1 - t);
-    fill_stage(ev, ring + (s % STAGES) * stage_elems, (size_t)t * p.P,
-               nk * p.P, p.B, b_warp, lane, vec);
+    fill_stage<WIDE>(ev, ring + (s % STAGES) * stage_elems, (size_t)t * p.P,
+                     nk * p.P, p.B, b_warp, lane, vec, pol);
   };
   // one commit group per stage, empty past the window, so that
   // wait_group<STAGES - 2> always means "stage s has landed"
@@ -682,24 +772,25 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
       if (!live) continue;
       int f[EV_N];
       read_fields<EvT>(tile + k * p.P * WARP, p, f);
-      apply_step(ls, st, p, f);
+      apply_step(ls, R, p, f);
       if (t_first + k == next_end) {
         // segment end: flush this lane's state, then reset it
         const int* e = sg.ends + 3 * seg;
         const int ocol = e[1], rcol = e[2];
         if ((unsigned)ocol < (unsigned)sg.n_out)
-          store_column(ls, st, p, rs, sg.out_rows, (size_t)sg.n_out,
-                       (size_t)ocol);
+          store_column(ls, R, p, rs, sg.out_rows, (size_t)sg.n_out,
+                       (size_t)ocol, true);
         if ((unsigned)rcol < (unsigned)sg.n_init)
-          load_column(ls, st, p, rs, sg.init_rows, (size_t)sg.n_init,
-                      (size_t)rcol);
+          load_column(ls, R, p, rs, sg.init_rows, (size_t)sg.n_init,
+                      (size_t)rcol, true);
         ++seg;
         next_end = seg < seg_last ? sg.ends[3 * seg] : INT_MAX;
       }
     }
   }
   cp_async_wait<0>();
-  if (live) store_column(ls, st, p, rs, rows_out, B, b);
+  // the wide route's tables are in rows_out already
+  if (live) store_column(ls, R, p, rs, rows_out, B, b, false);
 }
 
 // Launch geometry of one call.
@@ -716,13 +807,30 @@ int device_attr(cudaDeviceAttr a, int device, int fallback) {
   return cudaDeviceGetAttribute(&v, a, device) == cudaSuccess ? v : fallback;
 }
 
+// Sets the launch attributes of kernel `fn` for `smem` bytes of dynamic
+// shared memory, the carveout at its most shared.
+cudaError_t set_smem(const void* fn, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
 // vec: the widest request (16, 8, 4 or, int16 only, 2 bytes) that the
-// base address and the row pitch B * elem both allow. ksteps: the deepest
-// ring that keeps the launch at its fewest rounds of resident blocks. A
-// warp runs its lanes' steps in order, so a launch takes as many rounds
-// as the SMs need to hold all its blocks; within that count, fewer
-// resident warps contend less for issue and a deeper ring keeps more
-// steps in flight and pays its per-stage wait less often.
+// base address and the row pitch B * elem both allow.
+//
+// ksteps, shared route: the deepest ring that keeps the launch at its
+// fewest rounds of resident blocks. A warp runs its lanes' steps in
+// order, so a launch takes as many rounds as the SMs need to hold all its
+// blocks; within that count, fewer resident warps contend less for issue
+// and a deeper ring keeps more steps in flight and pays its per-stage
+// wait less often.
+//
+// ksteps, wide route: the deepest ring at which one block is resident on
+// an SM, by the occupancy calculator (shared memory and registers). The
+// block's lanes (ops/replay_cuda.py) set the warps an SM.
 template <typename EvT>
 cudaError_t make_plan(const void* events, const Params& p, int device,
                       Plan* out) {
@@ -732,7 +840,8 @@ cudaError_t make_plan(const void* events, const Params& p, int device,
                         (reinterpret_cast<uintptr_t>(events) % vec) != 0))
     vec /= 2;
   const int warps = p.lanes / WARP;
-  const size_t state = (size_t)(p.R - X_ROWS - 1) * p.lanes * 4;
+  const int tile_rows = p.route ? p.vhlen : p.R - X_ROWS - 1;
+  const size_t state = (size_t)tile_rows * p.lanes * 4;
   const size_t step_w = (size_t)p.P * WARP * elem;
   const int sm_smem = device_attr(
       cudaDevAttrMaxSharedMemoryPerMultiprocessor, device, 233472);
@@ -744,23 +853,56 @@ cudaError_t make_plan(const void* events, const Params& p, int device,
   auto smem_of = [&](int k) {
     return state + (size_t)warps * STAGES * k * step_w;
   };
-  const long grid = (p.B + p.lanes - 1) / p.lanes;
   int k = 0;
-  long rounds = LONG_MAX, blocks = 0;
-  for (int kk = 1; kk <= MAX_KSTEPS && smem_of(kk) <= (size_t)blk_smem;
-       ++kk) {
-    const long fit = (long)(sm_smem / (smem_of(kk) + reserved));
-    if (fit == 0) break;
-    const long r = (grid + sms * fit - 1) / (sms * fit);
-    if (r <= rounds) {  // rounds only grow with kk: the last tie wins
-      rounds = r;
-      k = kk;
-      blocks = fit;
+  long blocks = 0;
+  if (p.route) {
+    auto* fn = replay_fsm_kernel<EvT, true>;
+    cudaError_t e = set_smem(reinterpret_cast<const void*>(fn), blk_smem);
+    if (e != cudaSuccess) return e;
+    for (int kk = MAX_KSTEPS; kk >= 1; --kk) {
+      if (smem_of(kk) > (size_t)blk_smem) continue;
+      int fit = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, p.lanes,
+                                                        smem_of(kk));
+      if (e != cudaSuccess) return e;
+      if (fit > 0) {
+        k = kk;
+        blocks = fit;
+        break;
+      }
+    }
+  } else {
+    const long grid = (p.B + p.lanes - 1) / p.lanes;
+    long rounds = LONG_MAX;
+    for (int kk = 1; kk <= MAX_KSTEPS && smem_of(kk) <= (size_t)blk_smem;
+         ++kk) {
+      const long fit = (long)(sm_smem / (smem_of(kk) + reserved));
+      if (fit == 0) break;
+      const long r = (grid + sms * fit - 1) / (sms * fit);
+      if (r <= rounds) {  // rounds only grow with kk: the last tie wins
+        rounds = r;
+        k = kk;
+        blocks = fit;
+      }
     }
   }
   if (k == 0) return cudaErrorInvalidValue;
   *out = Plan{p.lanes, k, vec, smem_of(k), (int)blocks};
   return cudaSuccess;
+}
+
+template <typename EvT, bool WIDE>
+cudaError_t launch_route(const void* events, const int* rows_in,
+                         int* rows_out, const Segments& sg, const Params& p,
+                         const Plan& pl, cudaStream_t stream) {
+  auto* fn = replay_fsm_kernel<EvT, WIDE>;
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(fn), pl.smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.B + p.lanes - 1) / p.lanes);
+  fn<<<grid, p.lanes, pl.smem, stream>>>(static_cast<const EvT*>(events),
+                                         rows_in, rows_out, sg, p, pl.ksteps,
+                                         pl.vec);
+  return cudaGetLastError();
 }
 
 template <typename EvT>
@@ -770,19 +912,11 @@ cudaError_t launch(const void* events, const int* rows_in, int* rows_out,
   Plan pl;
   cudaError_t e = make_plan<EvT>(events, p, device, &pl);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(replay_fsm_kernel<EvT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pl.smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(replay_fsm_kernel<EvT>,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.B + p.lanes - 1) / p.lanes);
-  replay_fsm_kernel<EvT><<<grid, p.lanes, pl.smem, stream>>>(
-      static_cast<const EvT*>(events), rows_in, rows_out, sg, p, pl.ksteps,
-      pl.vec);
-  return cudaGetLastError();
+  return p.route
+             ? launch_route<EvT, true>(events, rows_in, rows_out, sg, p, pl,
+                                       stream)
+             : launch_route<EvT, false>(events, rows_in, rows_out, sg, p, pl,
+                                        stream);
 }
 
 // Copies the host parameter block, checks it, and rebases the row
@@ -794,6 +928,7 @@ int read_params(const int* hp, int n_params, int ev_int16, Params* p) {
   if (p->B <= 0 || p->lanes <= 0 || p->lanes > 128 || p->lanes % WARP ||
       p->exec0 != 0 || p->vh0 != X_ROWS || p->R <= X_ROWS ||
       p->t0 < 0 || p->t0 > p->t1 || p->t1 > p->T ||
+      (p->route != 0 && p->route != 1) ||
       p->P != EV_N + (ev_int16 ? __builtin_popcount(p->wide_mask) : 0))
     return (int)cudaErrorInvalidValue;
   // the vh_len row follows the version-history items and precedes the
@@ -816,7 +951,10 @@ extern "C" {
 
 // Replays steps [t0, t1) of events [T, P, B] (int32, or int16 when
 // ev_int16) onto rows_in [R, B] int32, writing rows_out [R, B] (may alias
-// rows_in). hp: the N_PARAMS ints of Params.
+// rows_in). hp: the N_PARAMS ints of Params; its route field picks the
+// shared or the wide route (ops/replay_cuda.py replay_route). The wide
+// route updates the slot tables in rows_out while it runs, so out_rows
+// and init_rows below must not alias rows_out.
 //
 // Lane-packed route, when seg_ptr is not null: seg_ptr [B + 1] and
 // seg_ends [n, 3] list each lane's segment ends (end step, output column,
@@ -847,7 +985,9 @@ int cadence_replay_fsm(const void* events, int ev_int16, const int* rows_in,
 
 // The launch geometry cadence_replay_fsm would use for these arguments:
 // out[0..4] = lanes per block, steps per ring stage, bytes per copy
-// request, dynamic shared memory per block, blocks resident per SM.
+// request, dynamic shared memory per block, blocks resident per SM (the
+// occupancy calculator's count on the wide route, the shared memory's on
+// the shared route).
 // Returns a cudaError_t.
 int cadence_replay_fsm_plan(const void* events, int ev_int16, const int* hp,
                             int n_params, int device, int* out) {

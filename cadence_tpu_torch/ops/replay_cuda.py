@@ -10,9 +10,12 @@ column per wide column.
 
 ``replay_rows`` and ``replay_rows_packed`` are the kernel wrappers. On a
 CUDA tensor they launch ``csrc/replay_fsm.cu`` (one thread per history
-lane, its state column held on chip across the time loop, the event
-tiles staged through shared memory) and count the launch in
-``replay_rows.launches``; on a CPU tensor they run ``replay_rows_plain``
+lane, the event tiles staged through shared memory; on the shared route
+its state column held on chip across the time loop, on the wide route,
+which ``replay_route`` picks from the shape for wide tables at many
+lanes, its slot tables left in device memory) and count the launch in
+``replay_rows.launches`` (and ``replay_rows.wide_launches``); on a CPU
+tensor they run ``replay_rows_plain``
 and ``replay_rows_packed_plain``, the transition table written as masked
 ``torch.where`` row updates that follow the reference kernel step by
 step. ``replay_rows_packed`` is the lane-packed route in one launch: each
@@ -605,7 +608,9 @@ def replay_rows_packed_plain(events: torch.Tensor, rows: torch.Tensor,
 # --------------------------------------------------------------------------
 
 # host parameter block of cadence_replay_fsm (csrc/replay_fsm.cu, Params)
-_N_PARAMS = 22 + 2 * S.EV_N
+_N_PARAMS = 23 + 2 * S.EV_N
+# index of the route in the block
+_ROUTE_PARAM = 22
 
 # shared memory a block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232448
@@ -614,19 +619,36 @@ _RING_STAGES = 3
 # blocks a launch should make where the batch allows: about two per SM of
 # an H100 (132 SMs)
 _MIN_BLOCKS = 256
+# an H100's SMs, the shared memory of one SM (228 KB) and what the card
+# reserves of it for each block: what the route is chosen by where there
+# is no card to ask
+_SMS = 132
+_SM_SMEM = 233472
+_SMEM_RESERVED = 1024
+_WARP = 32
+# lanes per block on the wide route: 4 warps, and one such block resident
+# on an SM (the kernel's plan sizes its ring so); of 2, 4, 6, 8 and 16
+# warps an SM, 4 timed fastest at the ndc storm's shape (PERF.md)
+_WIDE_LANES = 128
+ROUTES = ("shared", "wide")
+
+
+def _lane_smem(rows_padded: int) -> int:
+    """Shared memory of one lane on the shared route with one step a ring
+    stage: its state tile (the rows past the exec rows and the vh_len
+    row, which the kernel keeps in registers) and its event ring of at
+    most 64 bytes a lane-step, int32 or int16."""
+    return (rows_padded - S.X_N - 1) * 4 + _RING_STAGES * 4 * S.EV_N
 
 
 def lanes_per_block(rows_padded: int, batch: Optional[int] = None) -> int:
     """History lanes (threads) per block: the widest of 128/64/32 whose
-    block fits in shared memory with one step a ring stage (each warp's
-    state tile, the rows past the exec rows and the vh_len row, which the
-    kernel keeps in registers, and its event ring of at most 64 bytes a
-    lane-step, int32 or int16) and, given the ``batch`` width, still
-    makes ``_MIN_BLOCKS`` blocks; the narrowest that fits when none does,
-    so that a narrow batch spreads over the SMs."""
+    block fits in shared memory with one step a ring stage and, given the
+    ``batch`` width, still makes ``_MIN_BLOCKS`` blocks; the narrowest
+    that fits when none does, so that a narrow batch spreads over the
+    SMs."""
     fits = [lanes for lanes in (128, 64, 32)
-            if lanes * ((rows_padded - S.X_N - 1) * 4
-                        + _RING_STAGES * 4 * S.EV_N) <= _SMEM_LIMIT]
+            if lanes * _lane_smem(rows_padded) <= _SMEM_LIMIT]
     if not fits:
         raise ValueError(
             f"{rows_padded} state rows do not fit shared memory at 32 lanes")
@@ -638,6 +660,39 @@ def lanes_per_block(rows_padded: int, batch: Optional[int] = None) -> int:
     return fits[-1]
 
 
+def replay_route(rows_padded: int, batch: int, sms: int = _SMS,
+                 sm_smem: int = _SM_SMEM) -> str:
+    """The kernel's route for a batch of ``batch`` lanes at
+    ``rows_padded`` state rows on a card of ``sms`` SMs with ``sm_smem``
+    bytes of shared memory each.
+
+    ``"wide"`` where the shared route's state tile (one warp's, with a
+    ring of one step a stage) lets at most one warp reside on an SM and
+    the batch needs more than one round of such warps: more than ``sms``
+    warps. There the slot tables stay in device memory and many warps
+    share an SM. ``"shared"`` otherwise: the whole state on chip, which
+    is fastest where the tile leaves room for several warps, or where the
+    batch's warps all reside in one round.
+
+    Timed on an H100 (PERF.md): at R_pad 944 the shared route is 7%
+    faster up to 4,096 lanes and the wide one 1.8x faster from 4,352 (3.2x
+    at 32,768); at R_pad 152 the shared route is 1.5x faster."""
+    warp_smem = _WARP * _lane_smem(rows_padded) + _SMEM_RESERVED
+    if sm_smem // warp_smem <= 1 and batch > sms * _WARP:
+        return "wide"
+    return "shared"
+
+
+def _card(dev) -> tuple:
+    """(SMs, shared memory of an SM) of CUDA device ``dev``; the H100's
+    for any other device."""
+    if dev.type != "cuda":
+        return _SMS, _SM_SMEM
+    props = torch.cuda.get_device_properties(_device_index(dev))
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_multiprocessor", _SM_SMEM))
+
+
 def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
                    base, wide_cols) -> np.ndarray:
     caps = rm.caps
@@ -646,13 +701,16 @@ def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
     wide_mask = 0
     for c in wide_cols:
         wide_mask |= 1 << int(c)
+    route = replay_route(rm.rows_padded, B, *_card(events.device))
+    lanes = (_WIDE_LANES if route == "wide"
+             else lanes_per_block(rm.rows_padded, B))
     hp = [
-        T, P, B, rm.rows_padded, t0, t1, lanes_per_block(rm.rows_padded, B),
+        T, P, B, rm.rows_padded, t0, t1, lanes,
         rm.exec0, rm.vh0, rm.vhlen, rm.act0, rm.tim0, rm.chd0, rm.rc0,
         rm.sg0,
         caps.max_activities, caps.max_timers, caps.max_children,
         caps.max_request_cancels, caps.max_signals_ext,
-        caps.max_version_items, wide_mask,
+        caps.max_version_items, wide_mask, ROUTES.index(route),
     ]
     hp += [phys[c] for c in range(S.EV_N)] + _base_list(base)
     assert len(hp) == _N_PARAMS
@@ -725,6 +783,7 @@ def _launch(events, rows, out, caps, base, wide_cols, t0, t1,
             "replay_fsm kernel launch failed: "
             + lib.cadence_cuda_error_string(err).decode())
     replay_rows.launches += 1
+    replay_rows.wide_launches += int(hp[_ROUTE_PARAM])
 
 
 def replay_rows(events: torch.Tensor, rows: torch.Tensor,
@@ -756,6 +815,8 @@ def replay_rows(events: torch.Tensor, rows: torch.Tensor,
 
 
 replay_rows.launches = 0
+# the launches that took the wide route
+replay_rows.wide_launches = 0
 
 
 def replay_rows_packed(events: torch.Tensor, rows: torch.Tensor,
@@ -795,7 +856,8 @@ def kernel_plan(events: torch.Tensor, caps: S.Capacities, base=None,
                 wide_cols: Sequence[int] = ()) -> dict:
     """The launch geometry the kernel takes for ``events`` on its CUDA
     device: lanes per block, steps per ring stage, bytes per copy
-    request, shared memory per block and resident blocks per SM."""
+    request, shared memory per block, resident blocks per SM, the route
+    (``replay_route``) and the resident warps per SM."""
     from . import _build
 
     lib = _build.load("replay_fsm")
@@ -810,8 +872,12 @@ def kernel_plan(events: torch.Tensor, caps: S.Capacities, base=None,
         raise RuntimeError(
             "replay_fsm plan failed: "
             + lib.cadence_cuda_error_string(err).decode())
-    return dict(zip(("lanes_per_block", "steps_per_stage", "request_bytes",
+    plan = dict(zip(("lanes_per_block", "steps_per_stage", "request_bytes",
                      "smem_bytes", "blocks_per_sm"), res.tolist()))
+    plan["route"] = ROUTES[int(hp[_ROUTE_PARAM])]
+    plan["warps_per_sm"] = (plan["blocks_per_sm"] * plan["lanes_per_block"]
+                            // _WARP)
+    return plan
 
 
 # --------------------------------------------------------------------------

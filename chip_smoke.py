@@ -16,7 +16,11 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    default and the retry_deep capacities, int32 and int16 streams; ragged
    batch widths (2,045 and 2,046 lanes: narrower copy requests), one-step
    and empty windows, and the fused packed route (segment ends at any
-   step, permuted output columns, resets into init columns);
+   step, permuted output columns, resets into init columns); then (2b)
+   the wide route at R_pad 944 on 8,192 lanes of ndc_storm histories,
+   int32 and int16, windowed, aliased and packed with out-of-range
+   columns, then at the storm's 32,768 lanes (two rounds of blocks),
+   int32 and int16, timed; its route and launches counted;
 3. ``replay_packed`` on 65,536 tiled retry_deep histories, int32 and
    narrow, with kernel timing (CUDA events) against the memory bound,
    and the kernel's launch geometry; then the reference bench's replay
@@ -305,6 +309,12 @@ RANDOM_B, RANDOM_T = 2048, 1024
 RAGGED_BS, RAGGED_T = (2045, 2046), 256
 WINDOWS = ((0, 1), (100, 101), (255, 256), (5, 5))
 PACKED_L, PACKED_T, PACKED_N_INIT = 2048, 256, 64
+# phase 2b, the wide route: 8,192 lanes of ndc_storm histories (256
+# fuzzed uniques tiled, as the benchmark's storm tiles them) x 1,024
+# steps at the default capacities (R_pad 944), a window inside them, the
+# packed route's init columns; then the storm's 32,768 lanes, timed
+WIDE_LANES, WIDE_UNIQUE, WIDE_SEED = 8192, 256, 6000
+WIDE_WINDOW, WIDE_N_INIT, WIDE_STORM_LANES = (300, 700), 64, 32768
 # phase 4: the mixed_depth shape
 N_SHALLOW, N_DEEP = 1800, 200
 # phase 5: random affine streams for the scan kernel
@@ -667,6 +677,160 @@ def packed_cases(torch, np, S, E, RC):
                       "route": "packed", "L": L, "T": T, "segments": n_seg,
                       "max_abs_err": err, "equal": equal})
     return cases
+
+
+def ndc_teb(np, S, P, caps):
+    """[T, EV_N, WIDE_UNIQUE] int32 events of ``WIDE_UNIQUE`` ndc_storm
+    histories (a fuzzer seeded per history), and their valid events."""
+    from cadence_tpu_torch.testing import workloads as W
+    from cadence_tpu_torch.testing.event_generator import HistoryFuzzer
+
+    hs = [(f"wf-{i}", f"run-{i}", W.ndc_storm_history(
+        HistoryFuzzer(seed=WIDE_SEED + i, caps=caps), depth=1000))
+        for i in range(WIDE_UNIQUE)]
+    uniq = P.pack_histories(hs, caps=caps)
+    return uniq.teb(), int(uniq.lengths.sum())
+
+
+def tile_lanes(np, teb, lanes):
+    """``teb`` [T, P, n] tiled over ``lanes`` (a multiple of n) lanes."""
+    return np.ascontiguousarray(np.tile(teb, (1, 1, lanes // teb.shape[2])))
+
+
+def phase_wide_route(torch, np, S, P, RC):
+    """The wide route (slot tables in device memory, many warps an SM)
+    against the plain version, bit for bit, at R_pad 944 on
+    ``WIDE_LANES`` lanes of ndc_storm histories: int32 and the int16
+    narrow stream, from the empty and from a random state (every row,
+    the padding included), over every step and over a window, with
+    ``rows_in`` aliased to ``rows_out`` and distinct; the packed route
+    with segment ends, resets and out-of-range columns. The route of
+    each plan, R_pad 152 on the shared route, and every launch counted
+    as wide; then at the storm's lanes, in two rounds of blocks, both
+    streams against the plain version and int32's time beside its bound.
+    Returns the largest difference."""
+    caps = S.Capacities()
+    rm = RC.RowMap(caps)
+    L = WIDE_LANES
+    uniq, uniq_valid = ndc_teb(np, S, P, caps)
+    T = uniq.shape[0]
+    streams = device_streams(torch, RC, tile_lanes(np, uniq, L))
+    rng = torch.Generator().manual_seed(WIDE_SEED)
+    starts = {
+        "empty": RC.state_to_rows(
+            S.state_from_numpy(S.empty_state(L, caps), "cuda"), rm),
+        "random": torch.randint(-5, 6, (rm.rows_padded, L), generator=rng,
+                                dtype=torch.int32).cuda(),
+    }
+    plans = {s: RC.kernel_plan(evd, caps, base, wide)
+             for s, (evd, base, wide) in streams.items()}
+    narrow = S.Capacities(**RETRY_CAPS)
+    narrow_plan = RC.kernel_plan(
+        torch.zeros((T, S.EV_N, L), dtype=torch.int32).cuda(),
+        narrow)
+    launches0 = RC.replay_rows.launches
+    wide0 = RC.replay_rows.wide_launches
+    cases = []
+    for start, rows0 in starts.items():
+        for t0, t1 in ((0, T), WIDE_WINDOW):
+            want = {s: RC.replay_rows_plain(evd, rows0, caps, base, wide,
+                                            t0, t1)
+                    for s, (evd, base, wide) in streams.items()}
+            for stream, (evd, base, wide) in streams.items():
+                for alias in (False, True):
+                    rows = rows0.clone()
+                    got = RC.replay_rows(evd, rows, caps, base, wide, t0,
+                                         t1, out=rows if alias else None)
+                    torch.cuda.synchronize()
+                    err, equal = compare(torch, [got, rows],
+                                         [want[stream],
+                                          want[stream] if alias else rows0])
+                    cases.append({"start": start, "stream": stream,
+                                  "window": [t0, t1], "aliased": alias,
+                                  "max_abs_err": err, "equal": equal})
+    # the packed route: a twentieth of the segments flush into no column
+    # or reset from none (negative, or past the last)
+    seg_end, out_row, reset_row, n_seg = random_segments(
+        np, L, T, WIDE_N_INIT, seed=WIDE_SEED + 1)
+    n_out = n_seg + 2
+    prng = np.random.default_rng(WIDE_SEED + 2)
+    lanes_e, steps_e = np.nonzero(seg_end)
+    off = prng.random(n_seg) < 0.05
+    out_row[lanes_e[off], steps_e[off]] = prng.choice([-1, n_out, n_out + 7],
+                                                      int(off.sum()))
+    off = prng.random(n_seg) < 0.05
+    reset_row[lanes_e[off], steps_e[off]] = prng.choice(
+        [-3, WIDE_N_INIT + 1, WIDE_N_INIT + 9], int(off.sum()))
+    ptr, ends = RC.segment_list(seg_end, out_row, reset_row)
+    ptr_d, ends_d = torch.from_numpy(ptr).cuda(), torch.from_numpy(
+        ends).cuda()
+    init_rows = torch.randint(-5, 6, (rm.rows_padded, WIDE_N_INIT + 1),
+                              generator=rng, dtype=torch.int32).cuda()
+    out0 = torch.randint(-5, 6, (rm.rows_padded, n_out), generator=rng,
+                         dtype=torch.int32).cuda()
+    rows0 = starts["random"]
+    for stream, (evd, base, wide) in streams.items():
+        want = RC.replay_rows_packed_plain(evd, rows0, caps, ptr_d, ends_d,
+                                           out0, init_rows, base, wide)
+        for alias in (False, True):
+            rows, out_rows = rows0.clone(), out0.clone()
+            got = RC.replay_rows_packed(evd, rows, caps, ptr_d, ends_d,
+                                        out_rows, init_rows, base, wide,
+                                        out=rows if alias else None)
+            torch.cuda.synchronize()
+            err, equal = compare(torch, got, want)
+            cases.append({"start": "random", "stream": stream,
+                          "route": "packed", "aliased": alias,
+                          "segments": n_seg, "max_abs_err": err,
+                          "equal": equal})
+    del streams, starts, want, got, rows, out_rows
+    torch.cuda.empty_cache()
+
+    # the storm's lanes (two rounds of resident blocks, where 8,192 lanes
+    # take one), from the empty state: each stream's timed launches
+    # against the plain version, bit for bit, int32 timed beside its bound
+    teb = tile_lanes(np, uniq, WIDE_STORM_LANES)
+    valid = uniq_valid * (WIDE_STORM_LANES // WIDE_UNIQUE)
+    streams = device_streams(torch, RC, teb)
+    rows0 = RC.state_to_rows(S.state_from_numpy(
+        S.empty_state(WIDE_STORM_LANES, caps), "cuda"), rm)
+    storm = {"lanes": WIDE_STORM_LANES, "T": T, "R_pad": rm.rows_padded}
+    for stream, (evd, base, wide) in streams.items():
+        out = torch.empty_like(rows0)
+        ms = cuda_ms(lambda: RC.replay_rows(evd, rows0, caps, base, wide,
+                                            out=out))
+        storm[f"plan_{stream}"] = RC.kernel_plan(evd, caps, base, wide)
+        if stream == "int32":
+            _, bound_ms, bound_by = bound(teb.nbytes, rm.rows_padded,
+                                          WIDE_STORM_LANES, valid)
+            storm.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms)
+        want = RC.replay_rows_plain(evd, rows0, caps, base, wide)
+        err, equal = compare(torch, [out], [want])
+        cases.append({"start": "empty", "stream": stream,
+                      "lanes": WIDE_STORM_LANES, "window": [0, T],
+                      "aliased": False, "max_abs_err": err,
+                      "equal": equal})
+        del out, want
+    launches = RC.replay_rows.launches - launches0
+    wide_launches = RC.replay_rows.wide_launches - wide0
+    del streams, rows0
+    torch.cuda.empty_cache()
+    emit({"phase": "wide_route", "R_pad": rm.rows_padded, "lanes": L,
+          "T": T, "plans": plans, "plan_at_R_pad_152": narrow_plan,
+          "launches": launches, "wide_launches": wide_launches,
+          "cases": cases, "storm_kernel": storm})
+    check(all(p["route"] == "wide" for p in plans.values()),
+          f"R_pad 944 at {L} lanes did not take the wide route: {plans}")
+    check(narrow_plan["route"] == "shared",
+          f"R_pad 152 left the shared route: {narrow_plan}")
+    check(launches > 0 and wide_launches == launches,
+          f"{wide_launches} of {launches} launches counted as wide")
+    check(storm["plan_int32"]["route"] == storm["plan_int16"]["route"]
+          == "wide", f"the storm's lanes did not take the wide route: {storm}")
+    bad = [c for c in cases if not c["equal"]]
+    check(not bad, f"the wide route disagrees with plain: {bad}")
+    return max(c["max_abs_err"] for c in cases)
 
 
 def retry_uniques(W, n, depth, seed):
@@ -7032,6 +7196,9 @@ def main() -> int:
 
     # 2. kernel against plain on random events
     rand_err = phase_kernel_vs_plain(torch, np, S, E, RC)
+
+    # 2b. the wide route against plain on ndc_storm histories
+    rand_err = max(rand_err, phase_wide_route(torch, np, S, P, RC))
 
     # 5. the scan kernel against plain on random streams, beside phase 2
     seg_rand_err = phase_segscan_vs_plain(torch, np, AC)

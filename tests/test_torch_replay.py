@@ -9,6 +9,8 @@ int32 and every comparison is ``np.array_equal``.
 """
 
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -588,3 +590,74 @@ def test_replay_rows_one_step_and_empty_windows_on_cpu(window):
     want = rows if t0 == t1 else RC.replay_rows_plain(teb[t0:t1], rows, CAPS)
     assert torch.equal(got, want)
     assert RC.replay_rows.launches == before
+
+
+# --------------------------------------------------------------------------
+# the kernel's route, chosen from the shape alone
+# --------------------------------------------------------------------------
+
+# the deployments' capacities: retry_deep (R_pad 152), the default full
+# tables (944) and the serving plane's (120)
+RETRY_DEEP_CAPS = S.Capacities(
+    max_events=1024, max_activities=4, max_timers=2, max_children=2,
+    max_request_cancels=2, max_signals_ext=2, max_version_items=2)
+SERVE_CAPS = S.Capacities(
+    max_events=512, max_activities=2, max_timers=2, max_children=2,
+    max_request_cancels=2, max_signals_ext=4, max_version_items=2)
+ROUTE_CASES = [
+    (RETRY_DEEP_CAPS, 262_144, "shared"),  # retry_deep storm
+    (RETRY_DEEP_CAPS, 1_048_576, "shared"),  # retry_deep resume tail
+    (S.Capacities(), 32_768, "wide"),  # ndc_storm storm
+    (S.Capacities(), 256, "shared"),  # the rebuilder's cold batch
+    (S.Capacities(), 64, "shared"),  # the replication storm's batch
+    (SERVE_CAPS, 4_096, "shared"),  # the serving tick
+]
+
+
+def _shape_only_events(batch, t=4):
+    """[t, EV_N, batch] int32 events with no storage of their own: the
+    parameter block reads only their shape and device."""
+    return torch.zeros((), dtype=torch.int32).expand(t, S.EV_N, batch)
+
+
+@pytest.mark.parametrize("caps,batch,route", ROUTE_CASES,
+                         ids=[f"{RC.RowMap(c).rows_padded}x{b}"
+                              for c, b, _ in ROUTE_CASES])
+def test_replay_route_from_shape(caps, batch, route):
+    """Wide tables at more lanes than one warp a SM can hold take the wide
+    route; narrow tables, and wide tables at few lanes, the shared one."""
+    assert RC.RowMap(caps).rows_padded in (152, 944, 120)
+    assert RC.replay_route(RC.RowMap(caps).rows_padded, batch) == route
+
+
+@pytest.mark.parametrize("caps,batch,route", ROUTE_CASES,
+                         ids=[f"{RC.RowMap(c).rows_padded}x{b}"
+                              for c, b, _ in ROUTE_CASES])
+def test_kernel_params_carry_the_route(caps, batch, route):
+    """The parameter block has the kernel's N_PARAMS entries and carries
+    the route where the kernel's Params has it, with the lanes per block
+    of that route."""
+    src = (Path(__file__).resolve().parents[1]
+           / "cadence_tpu_torch/ops/csrc/replay_fsm.cu").read_text()
+    body = src[src.index("struct Params {"):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("{") + 1:body.index("};")])
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl.startswith("int "):
+            continue
+        for name in decl[4:].split(","):
+            name = name.strip()
+            if name.endswith("[EV_N]"):
+                names += [name[:-6]] * S.EV_N
+            else:
+                names.append(name)
+    assert len(names) == RC._N_PARAMS
+    assert names.index("route") == RC._ROUTE_PARAM
+    rm = RC.RowMap(caps)
+    hp = RC._kernel_params(_shape_only_events(batch), rm, 0, 4, None, ())
+    assert hp.dtype == np.int32 and len(hp) == RC._N_PARAMS
+    assert RC.ROUTES[hp[RC._ROUTE_PARAM]] == route
+    assert hp[names.index("lanes")] == (
+        128 if route == "wide" else RC.lanes_per_block(rm.rows_padded, batch))
+    assert hp[names.index("B")] == batch
