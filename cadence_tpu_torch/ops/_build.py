@@ -55,6 +55,14 @@ _SIGNATURES = {
         ]),
         "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "refresh_tasks": {
+        # the six state tables, the 12 outputs, B and the five slot caps,
+        # threads a lane, lanes a block, the five slab offsets and their
+        # end, the stream, the device
+        "cadence_refresh_tasks": (ctypes.c_int, [ctypes.c_void_p] * 18 + [
+            ctypes.c_int] * 14 + [ctypes.c_void_p, ctypes.c_int]),
+        "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _lock = threading.Lock()

@@ -3,23 +3,30 @@
 The port's counterpart of the reference package's ``ops/refresh.py``
 (itself the device twin of ``core/task_refresher.py`` and of the
 reference's mutableStateTaskRefresher). ``refresh_tasks_device`` runs
-after the replay on the device that holds the state, in torch ops: its
-outputs are compact int32 (and bool) tensors, -1 marking an absent task,
-that the host hydrates into TransferTask / TimerTask records with one
-copy a batch (``refreshed_to_numpy``, then ``hydrate_tasks``).
+after the replay on the device that holds the state: its outputs are
+compact int32 (and bool) tensors, -1 marking an absent task, that the
+host hydrates into TransferTask / TimerTask records with one copy a batch
+(``refreshed_to_numpy``, then ``hydrate_tasks``).
 
-The pass makes no host synchronisation: no ``.item()``, no copy, no
-branch on a tensor's value. The activity timer, an argmin over five
-candidate kinds in the reference's loop, is one stacked ``[B, A, 5]``
-reduction here, with value reductions and equality masks (``amin``,
-``amax``) that keep the reference's tie order bit for bit: the least
-expiry, then the least schedule id among ties, then the earlier kind;
-attempt and version the max over a kind's tied winners.
+On CUDA tensors it launches ``csrc/refresh_tasks.cu``: one launch a call,
+each state table read once through shared memory, a group of threads a
+lane (``refresh_plan``), counted in ``refresh_tasks_device.launches``. On
+any other device it runs ``refresh_tasks_plain``, the same function in
+torch ops. The activity timer, an argmin over five candidate kinds in the
+reference's loop, is there one stacked ``[B, A, 5]`` reduction, with
+value reductions and equality masks (``amin``, ``amax``) that keep the
+reference's tie order bit for bit: the least expiry, then the least
+schedule id among ties, then the earlier kind; attempt and version the
+max over a kind's tied winners. The kernel computes the same bits.
+
+Neither route makes a host synchronisation: no ``.item()``, no copy, no
+branch on a tensor's value.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Tuple
 
 import numpy as np
@@ -141,19 +148,166 @@ def _user_timer(tmr: torch.Tensor, running: torch.Tensor) -> torch.Tensor:
     return torch.where(u_exp < _BIG, out, -1)
 
 
+# the refresh kernel's geometry, owned here and passed to the kernel:
+# threads a block at most, and the dynamic shared memory a block may use
+# on Hopper; the tile a block takes stays within the 48 KB a block gets
+# without opting in, so that several blocks share an SM
+_THREADS = 256
+_SMEM_LIMIT = 232_448
+_SMEM_TILE = 48 * 1024
+_WARP = 32
+# slots of the widest table a thread takes
+_SLOTS_A_THREAD = 4
+# int32 of each table the kernel stages: a lane's exec_info row, then one
+# slot row of activities, timers, children, cancels and signals
+_ROW_INTS = (S.X_N, S.AC_N, S.TI_N, S.CH_N, S.RC_N, S.SG_N)
+
+
+def _slabs(lanes: int, slots: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The shared layout of a block of ``lanes`` lanes: the int32 offset
+    of each of the six tables' slabs, each at a 16-byte boundary, then
+    their end."""
+    offs = [0]
+    for n, w in zip((1,) + slots, _ROW_INTS):
+        offs.append(offs[-1] + -(-lanes * n * w // 4) * 4)
+    return tuple(offs)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(slots: Tuple[int, ...]) -> Tuple[int, int, Tuple[int, ...]]:
+    """(group, lanes, ``_slabs``) of ``refresh_plan`` for the slot counts
+    (A, TM, C, RC, SG)."""
+    quarter = -(-max(slots + (1,)) // _SLOTS_A_THREAD)
+    group = min(_WARP, 1 << (quarter - 1).bit_length())
+    # whole warps, at most _THREADS threads, the widest tile within
+    # _SMEM_TILE
+    lanes = _WARP // group
+    while (2 * lanes * group <= _THREADS
+           and 4 * _slabs(2 * lanes, slots)[-1] <= _SMEM_TILE):
+        lanes *= 2
+    slabs = _slabs(lanes, slots)
+    if 4 * slabs[-1] > _SMEM_LIMIT:
+        raise ValueError(
+            f"slot tables {slots} do not fit shared memory at {lanes} "
+            "lanes a block")
+    return group, lanes, slabs
+
+
+def refresh_plan(caps: S.Capacities) -> dict:
+    """The refresh kernel's launch geometry at ``caps``: ``group`` threads
+    a lane (the power of two at or above a quarter of the widest slot
+    table, at most a warp: a thread takes up to 4 of its slots),
+    ``lanes_per_block`` (the most, a power of two, whose slabs of the six
+    tables fit 48 KB of shared memory, with whole warps and at most 256
+    threads), ``threads`` and ``smem_bytes`` a block. The shapes alone
+    decide it. Timed on an H100 over every geometry (PERF.md): 1 thread
+    and 64 lanes at the retry_deep caps, 8 threads and 8 lanes at the
+    default ones."""
+    group, lanes, slabs = _plan((
+        caps.max_activities, caps.max_timers, caps.max_children,
+        caps.max_request_cancels, caps.max_signals_ext))
+    return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
+                smem_bytes=4 * slabs[-1])
+
+
+_TABLES = ("exec_info", "activities", "timers", "children", "cancels",
+           "signals")
+
+
+def check_refresh_operands(state: S.StateTensors) -> Tuple[int, ...]:
+    """The kernel's operands: the six tables it reads, contiguous int32
+    torch tensors on one device, exec_info [B, X_N] and each slot table
+    [B, slots, fields] with its schema's field count. Returns (B, A, TM,
+    C, RC, SG); raises ValueError on anything else."""
+    ex = state.exec_info
+    dims = []
+    for name, w in zip(_TABLES, _ROW_INTS):
+        t = getattr(state, name)
+        rank = 2 if name == "exec_info" else 3
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a torch tensor, got {type(t)}")
+        if t.dtype != torch.int32 or t.device != ex.device:
+            raise ValueError(
+                f"{name} must be int32 on {ex.device}, got {t.dtype} on "
+                f"{t.device}")
+        if (t.dim() != rank or t.shape[0] != ex.shape[0]
+                or t.shape[-1] != w):
+            raise ValueError(
+                f"{name} must be [{ex.shape[0]}{', n' * (rank - 2)}, {w}], "
+                f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        dims.append(t.shape[rank - 2])
+    return tuple(dims)
+
+
+def _launch(state: S.StateTensors) -> RefreshedTasks:
+    """Check the operands, allocate the outputs and launch
+    cadence_refresh_tasks on the current stream."""
+    b, a, tm, c, rc, sg = dims = check_refresh_operands(state)
+    group, lanes, slabs = _plan(dims[1:])
+    dev = state.exec_info.device
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = RefreshedTasks(
+        close_transfer=empty(b, dtype=torch.bool),
+        workflow_timeout_ts=empty(b), decision_transfer=empty(b),
+        decision_timer=empty(b, 3), activity_transfer=empty(b, a),
+        activity_timer=empty(b, 5), user_timer=empty(b, 3),
+        child_transfer=empty(b, c), cancel_transfer=empty(b, rc),
+        signal_transfer=empty(b, sg),
+        first_decision_pending=empty(b, dtype=torch.bool),
+        start_ts=empty(b),
+    )
+    if b == 0:
+        return out
+    from . import _build
+
+    lib = _build.load("refresh_tasks")
+    err = lib.cadence_refresh_tasks(
+        *(getattr(state, name).data_ptr() for name in _TABLES),
+        *(getattr(out, f).data_ptr() for f in FIELDS),
+        b, a, tm, c, rc, sg, group, lanes, *slabs[1:],
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if err:
+        raise RuntimeError(
+            "refresh_tasks kernel launch failed: "
+            + lib.cadence_cuda_error_string(err).decode())
+    refresh_tasks_device.launches += 1
+    return out
+
+
 def refresh_tasks_device(state: S.StateTensors) -> RefreshedTasks:
-    """Outstanding tasks of every workflow in ``state`` (torch tensors,
-    on any device), computed on that device inside the span
-    ``cadence.refresh``; results stay there."""
+    """Outstanding tasks of every workflow in ``state`` (torch tensors),
+    computed on their device inside the span ``cadence.refresh``; results
+    stay there.
+
+    CUDA tensors launch the refresh kernel on the current stream (counted
+    in ``refresh_tasks_device.launches``) or raise; tensors on any other
+    device run ``refresh_tasks_plain``."""
     with device_span(REFRESH_SPAN):
-        return _refresh(state)
+        ex = state.exec_info
+        if not isinstance(ex, torch.Tensor):
+            raise TypeError(
+                "refresh_tasks_device takes torch state; move numpy state "
+                "to its device with schema.state_from_numpy")
+        if ex.device.type != "cuda":
+            return refresh_tasks_plain(state)
+        return _launch(state)
 
 
-def _refresh(state: S.StateTensors) -> RefreshedTasks:
+refresh_tasks_device.launches = 0
+
+
+def refresh_tasks_plain(state: S.StateTensors) -> RefreshedTasks:
+    """The refresh in torch ops, on any device: the CPU route of
+    ``refresh_tasks_device``, and the kernel's yardstick on the card."""
     ex = state.exec_info
     if not isinstance(ex, torch.Tensor):
         raise TypeError(
-            "refresh_tasks_device takes torch state; move numpy state to "
+            "refresh_tasks_plain takes torch state; move numpy state to "
             "its device with schema.state_from_numpy")
     x_state = ex[:, S.X_STATE]
     running = (x_state == int(WorkflowState.Created)) | (

@@ -26,15 +26,23 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
    and the kernel's launch geometry; then the reference bench's replay
    step on the same device-resident events, ``replay_scan_teb`` and
    ``refresh_tasks_device`` (``ops/refresh.py``): the refresh's and the
-   step's times three ways (CUDA events around the eager launches, the
-   launches' summed device time under torch.profiler, a CUDA graph's
-   replay), the refresh's launches and bound, the step's histories/s, the
-   card's refresh against the CPU's on every lane and a seeded 256
-   hydrated against the host refresher; the compiled baseline
+   step's times three ways (CUDA events around the calls, the launches'
+   summed device time under torch.profiler, a CUDA graph's replay), the
+   refresh's launches (one) and bound, the step's histories/s, the
+   refresh kernel against its plain version on every lane and a seeded
+   256 hydrated against the host refresher; the compiled baseline
    (``native.replay_sequential`` on the first 256 histories, its state
    against the kernel's, ``baseline_cpp_per_sec`` and ``vs_baseline``
    with the host CPU's model); the sidecar's scatters at full width
-   against their numpy paths, byte for byte and timed;
+   against their numpy paths, byte for byte and timed; then (3c) the
+   refresh kernel (``csrc/refresh_tasks.cu``) against its plain version
+   on the card at both table widths, every field of every lane, one
+   launch a call: replayed retry_deep finals at 262,144 and 1,048,576
+   lanes and ndc_storm finals at 32,768, each timed against its bound
+   and its plain version; the crafted tie and overflow states of
+   ``testing/refresh_states.py`` at those widths, the CPU tests' crafted
+   cases, a ragged last block, unaligned tables, and caps whose slabs
+   need more than 48 KB of shared memory a block;
 4. ``replay_stream(bucket=True)`` on a 90% shallow / 10% deep mix, with
    a metrics scope wired in, every snapshot against the plain route on
    the CPU and against the same stream without a scope, its FSM launches
@@ -266,9 +274,8 @@ the depth-bucketed rebuild route, and prints one JSON line per phase:
     written sets and rows against the FSM's; launches and wall of each
     arm; (c) ``python -m cadence_tpu_torch.testing.trace_demo`` on the
     card, exit 0, its span count and services;
-19. the refresh's line (``device_passes``: torch ops, no kernel of its
-    own), the kernel list with launch counts on the main paths, then the
-    device line.
+19. the kernel list (the FSM, the affine scan, the task refresh) with
+    launch counts by route, then the device line.
 
 Any failure exits non-zero without the final line. Needs one CUDA card;
 exits non-zero without one.
@@ -315,6 +322,14 @@ PACKED_L, PACKED_T, PACKED_N_INIT = 2048, 256, 64
 # packed route's init columns; then the storm's 32,768 lanes, timed
 WIDE_LANES, WIDE_UNIQUE, WIDE_SEED = 8192, 256, 6000
 WIDE_WINDOW, WIDE_N_INIT, WIDE_STORM_LANES = (300, 700), 64, 32768
+# phase 3c, the refresh kernel: replayed finals at the benchmark cells'
+# shapes (retry_deep storm and resume, ndc_storm storm), timed; the
+# crafted states at both widths; lanes of the states at the huge caps,
+# whose slabs take more than 48 KB of shared memory
+REFRESH_SHAPES = (("retry_deep", 262144), ("retry_deep", 1048576),
+                  ("ndc_storm", 32768))
+REFRESH_CRAFTED_SHAPES = (("retry_deep", 262144), ("ndc_storm", 32768))
+REFRESH_HUGE_LANES = 384
 # phase 4: the mixed_depth shape
 N_SHALLOW, N_DEEP = 1800, 200
 # phase 5: random affine streams for the scan kernel
@@ -975,46 +990,95 @@ def refresh_bound(state, refreshed):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def refresh_on_card(torch, S, R, final):
-    """The refresh of a device-resident ``final`` on the card, timed three
-    ways: the median of 21 CUDA-event timings around its eager launches
-    (``ms``: the host's launch rate shows in it), the summed device time
-    of its launches under torch.profiler (``device_ms``) and the median
-    of 21 replays of a CUDA graph of it (``graph_ms``); its device
-    launches, its bound, and every field against the same refresh on
-    the CPU."""
-    got = R.refresh_tasks_device(final)
+def refresh_diverged(torch, R, got, want):
+    """The fields of two RefreshedTasks that differ in dtype, shape or any
+    value."""
+    return [f for f in R.FIELDS
+            if getattr(got, f).dtype != getattr(want, f).dtype
+            or not torch.equal(getattr(got, f), getattr(want, f))]
+
+
+def refresh_case(torch, S, R, label, state):
+    """One state (numpy, or torch on the card) through the refresh kernel
+    and its plain version on the card: every field of every lane equal,
+    one launch. Returns the kernel's RefreshedTasks and the case's
+    record."""
+    if not isinstance(state.exec_info, torch.Tensor):
+        state = S.state_from_numpy(state, "cuda")
+    launches0 = R.refresh_tasks_device.launches
+    got = R.refresh_tasks_device(state)
+    launches = R.refresh_tasks_device.launches - launches0
+    want = R.refresh_tasks_plain(state)
     torch.cuda.synchronize()
-    want = R.refresh_tasks_device(final.map(lambda x: x.cpu()))
-    diverged = [f for f in R.FIELDS
-                if getattr(got, f).dtype != getattr(want, f).dtype
-                or not torch.equal(getattr(got, f).cpu(), getattr(want, f))]
-    each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(final)))
-    prof = device_busy(torch, lambda: R.refresh_tasks_device(final))
+    diverged = refresh_diverged(torch, R, got, want)
+    check(not diverged and launches == 1,
+          f"refresh kernel on {label}: fields {diverged} differ from the "
+          f"plain version, {launches} launches")
+    err = max((int((getattr(got, f).long() - getattr(want, f).long())
+                   .abs().max()) for f in R.FIELDS
+               if getattr(got, f).numel()), default=0)
+    return got, dict(
+        case=label, lanes=state.exec_info.shape[0], launches=launches,
+        fields_diverged=diverged, max_abs_err=err,
+        activity_timers=int((got.activity_timer[:, 0] != -1).sum()),
+        user_timers=int((got.user_timer[:, 0] != -1).sum()))
+
+
+def refresh_on_card(torch, S, R, final, reps: int = 21):
+    """The refresh kernel on a device-resident ``final`` against its plain
+    version on the card (``refresh_case``), and its time three ways: the
+    median of ``reps`` CUDA-event timings of a call (``ms``: the host's
+    launch rate shows in it), the device time of its launches under
+    torch.profiler (``device_ms``, one activity) and the median of
+    ``reps`` replays of a CUDA graph of it (``graph_ms``); the plain
+    version's median (``plain_ms``) and the bound."""
+    got, case = refresh_case(torch, S, R, "a replayed final", final)
+    each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(final),
+                               reps=reps))
+    plain = sorted(cuda_ms_each(lambda: R.refresh_tasks_plain(final),
+                                reps=max(3, reps // 4)))
+    # late in this script's whole run the profiler can drop every device
+    # activity of a window this short (ENTRY_TRACE_PAD_S): pad it, and
+    # profile it again should it still come back empty
+    def padded():
+        time.sleep(ENTRY_TRACE_PAD_S)
+        R.refresh_tasks_device(final)
+        torch.cuda.synchronize()
+        time.sleep(ENTRY_TRACE_PAD_S)
+
+    for _ in range(3):
+        prof = device_busy(torch, padded)
+        if prof["device_activities"]:
+            break
+    check(prof["device_activities"] == 1,
+          f"a refresh took {prof['device_activities']} device activities")
     graph = median_split(graph_ms_each(
-        torch, lambda: R.refresh_tasks_device(final)))
-    rec = dict(lanes=final.exec_info.shape[0], ms=each[len(each) // 2],
+        torch, lambda: R.refresh_tasks_device(final), reps=reps))
+    rec = dict(lanes=case["lanes"], ms=each[len(each) // 2],
                ms_min=each[0], ms_max=each[-1],
+               plain_ms=plain[len(plain) // 2],
                device_ms=prof["device_ms"],
                device_busy_ms=prof["device_busy_ms"],
                **{f"graph_ms{k}": v for k, v in graph.items()},
                launches=prof["device_activities"],
-               launch_names=prof["top_ms"], fields_diverged=diverged,
+               launch_names=prof["top_ms"],
+               fields_diverged=case["fields_diverged"],
+               max_abs_err=case["max_abs_err"],
                dtypes={f: str(getattr(got, f).dtype).replace("torch.", "")
                        for f in R.FIELDS},
                **refresh_bound(final, got))
-    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
     return got, rec
 
 
 def phase_refresh_step(torch, np, S, RC, R, unpack, m):
     """bench.py's unpacked replay step at full width, device-resident:
-    ``replay_scan_teb`` then ``refresh_tasks_device``. The card's refresh
-    against the CPU's on every lane; a seeded sample hydrated against
-    the host refresher on the rehydrated rows. The step and its refresh
-    are each timed three ways (``refresh_on_card``): eager CUDA events,
-    summed device time, a CUDA graph's replay; the step's device time
-    and its graph must exceed its refresh's."""
+    ``replay_scan_teb`` then ``refresh_tasks_device``. The refresh kernel
+    against its plain version on every lane; a seeded sample hydrated
+    against the host refresher on the rehydrated rows. The step and its
+    refresh are each timed three ways (``refresh_on_card``): CUDA events
+    around the calls, summed device time, a CUDA graph's replay; the
+    step's device time and its graph must exceed its refresh's."""
     from cadence_tpu_torch.core.task_refresher import refresh_tasks
 
     caps, tiled = m["caps"], m["tiled"]
@@ -1029,11 +1093,15 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
               for f in S.STATE_ROW_FIELDS),
           "replay_scan_teb differs from replay_packed's final")
     refreshed, rec = refresh_on_card(torch, S, R, final)
-    check(not rec["fields_diverged"],
-          f"card refresh differs from the CPU's: {rec['fields_diverged']}")
 
     def step():
         return R.refresh_tasks_device(RC.replay_scan_teb(state0, evd, caps))
+    # the main path's own count: the launches of one step
+    k0 = R.refresh_tasks_device.launches
+    step()
+    launches_a_step = R.refresh_tasks_device.launches - k0
+    check(launches_a_step == 1,
+          f"a replay + refresh step made {launches_a_step} refresh launches")
     step_each = sorted(cuda_ms_each(step, reps=11))
     step_ms = step_each[len(step_each) // 2]
     step_prof = device_busy(torch, step)
@@ -1058,6 +1126,7 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
                step_ms_max=step_each[-1],
                step_device_ms=step_prof["device_ms"],
                step_launches=step_prof["device_activities"],
+               refresh_launches_a_step=launches_a_step,
                **{f"step_graph_ms{k}": v for k, v in step_graph.items()},
                histories_per_sec=n / (step_ms * 1e-3),
                refreshed_to_numpy_s=d2h_s, hydrate_sample=len(sample),
@@ -1068,6 +1137,84 @@ def phase_refresh_step(torch, np, S, RC, R, unpack, m):
           "the replay + refresh step took less device time than its "
           f"refresh: {rec}")
     return rec
+
+
+def phase_refresh_kernel(torch, np, S, P, RC, R):
+    """The refresh kernel (``csrc/refresh_tasks.cu``) against its plain
+    version on the card, every field of every lane, one launch a call, at
+    both table widths: replayed finals of retry_deep histories (256
+    uniques tiled) at the storm's 262,144 lanes and the resume's 1,048,576
+    (R_pad 152), of ndc_storm histories at 32,768 lanes (the default
+    caps, R_pad 944), each timed against its bound and its plain version
+    (``refresh_on_card``); the crafted tie and overflow states and their
+    edges (``testing/refresh_states.py``) at the same widths; then the CPU
+    tests' crafted states (4 seeds of 512 lanes, the full tie, an expiry
+    of INT32_MAX and one past it, the edge states at three more caps), a
+    ragged last block, tables at unaligned addresses, and the crafted and
+    edge states at the huge caps, whose plan opts in to more than 48 KB
+    of shared memory a block."""
+    from cadence_tpu_torch.testing import refresh_states as RS
+    from cadence_tpu_torch.testing import workloads as W
+
+    widths = {"retry_deep": S.Capacities(**RETRY_CAPS),
+              "ndc_storm": S.Capacities()}
+
+    def replayed(caps, teb):
+        st0 = S.state_from_numpy(S.empty_state(teb.shape[2], caps), "cuda")
+        return RC.replay_scan_teb(st0, S.host_tensor(teb).cuda(), caps)
+
+    retry = widths["retry_deep"]
+    uniq = {
+        "retry_deep": replayed(retry, P.pack_histories(
+            retry_uniques(W, N_UNIQUE, DEPTH, 42), caps=retry).teb()),
+        "ndc_storm": replayed(widths["ndc_storm"], ndc_teb(
+            np, S, P, widths["ndc_storm"])[0]),
+    }
+    timed, cases = [], []
+    for name, lanes in REFRESH_SHAPES:
+        caps, u = widths[name], uniq[name]
+        reps = lanes // u.exec_info.shape[0]
+        final = u.map(lambda x: x.repeat(reps, *([1] * (x.dim() - 1))))
+        _, rec = refresh_on_card(torch, S, R, final)
+        timed.append(dict(rec, config=name,
+                          R_pad=RC.RowMap(caps).rows_padded,
+                          plan=R.refresh_plan(caps)))
+        del final
+        torch.cuda.empty_cache()
+    for name, lanes in REFRESH_CRAFTED_SHAPES:
+        caps = widths[name]
+        for build in (RS.crafted_state, RS.edge_state):
+            cases.append(refresh_case(
+                torch, S, R, f"{build.__name__}, {name} caps",
+                build(11, lanes, caps))[1])
+    small = RS.SMALL_CAPS
+    for seed in range(4):
+        caps = small if seed % 2 else retry
+        cases.append(refresh_case(torch, S, R, f"crafted seed {seed}",
+                                  RS.crafted_state(seed, 512, caps))[1])
+    cases.append(refresh_case(torch, S, R, "full tie",
+                              RS.full_tie_state(small))[1])
+    for timeout in (5, 6):
+        cases.append(refresh_case(torch, S, R, f"expiry INT32_MAX, "
+                                  f"timeout {timeout}",
+                                  RS.int32_max_state(small, timeout))[1])
+    for name, caps in {**RS.EDGE_CAPS, "retry_deep": retry}.items():
+        cases.append(refresh_case(torch, S, R, f"edge, {name} caps",
+                                  RS.edge_state(7, 512, caps))[1])
+    # a ragged last block, and every table one lane past its allocation's
+    # start (contiguous, some slabs then not 16-byte aligned)
+    ragged = S.state_from_numpy(RS.crafted_state(9, 1001, retry), "cuda")
+    cases.append(refresh_case(torch, S, R, "ragged 1,001 lanes", ragged)[1])
+    cases.append(refresh_case(torch, S, R, "offset by one lane",
+                              ragged.map(lambda x: x[1:]))[1])
+    huge = R.refresh_plan(RS.HUGE_CAPS)
+    check(huge["smem_bytes"] > 48 * 1024,
+          f"the huge caps' plan stays within 48 KB: {huge}")
+    for build in (RS.crafted_state, RS.edge_state):
+        cases.append(dict(refresh_case(
+            torch, S, R, f"{build.__name__}, huge caps",
+            build(13, REFRESH_HUGE_LANES, RS.HUGE_CAPS))[1], plan=huge))
+    return dict(timed=timed, cases=cases)
 
 
 def cpu_model() -> dict:
@@ -1189,8 +1336,6 @@ def stream_refresh(torch, np, S, RC, R, caps, results):
               for f in S.STATE_ROW_FIELDS),
           "the packed step's snapshots differ from the stream's")
     _, rec = refresh_on_card(torch, S, R, out)
-    check(not rec["fields_diverged"], "card refresh differs from the "
-          f"CPU's at the stream batch: {rec['fields_diverged']}")
     each = sorted(cuda_ms_each(lambda: R.refresh_tasks_device(replay()),
                                reps=11))
     rec.update(T=packed.scan_len, packed_lanes=packed.lanes,
@@ -7245,9 +7390,19 @@ def main() -> int:
                      for s, r in timing.items()},
           "nvidia_smi": smi})
 
+    # the refresh kernel's launches by route, each counted from zero
+    refresh_routes = {}
+
+    def refresh_route(route, fn, *args):
+        R.refresh_tasks_device.launches = 0
+        out = fn(*args)
+        refresh_routes[route] = R.refresh_tasks_device.launches
+        return out
+
     # 3, continued, outside the counted window: the replay + refresh step
     # on the card, the compiled baseline, the sidecar's scatter
-    step = phase_refresh_step(torch, np, S, RC, R, unpack, m)
+    step = refresh_route("replay_refresh_step", phase_refresh_step, torch,
+                         np, S, RC, R, unpack, m)
     baseline = phase_baseline(np, S, P, native, m,
                               step["histories_per_sec"])
     emit({"phase": "replay_refresh_step", "config": "retry_deep",
@@ -7255,6 +7410,13 @@ def main() -> int:
           "nvidia_smi": smi})
     emit({"phase": "sidecar_scatter", **phase_scatter(np, P, native, m),
           "nvidia_smi": smi})
+
+    # 3c. the refresh kernel against its plain version at both widths and
+    # on the crafted states, timed at the benchmark's shapes
+    refresh_kernel = refresh_route("refresh_kernel_check",
+                                   phase_refresh_kernel, torch, np, S, P,
+                                   RC, R)
+    emit({"phase": "refresh_kernel", **refresh_kernel, "nvidia_smi": smi})
 
     # 4. the bucketed stream against the plain route
     t0 = time.perf_counter()
@@ -7282,7 +7444,8 @@ def main() -> int:
     stream_tele = device_telemetry(
         np, stream_scope, stream_log, [p for _, p, _ in stream_res], "lanes",
         [r["int16"]["ms"] for r in packed_timing])
-    stream_step = stream_refresh(torch, np, S, RC, R, caps, stream_res)
+    stream_step = refresh_route("replay_stream_refresh", stream_refresh,
+                                torch, np, S, RC, R, caps, stream_res)
     emit({"phase": "stream", "route": "replay_stream(bucket=True)",
           "histories": len(mixed), "shallow": N_SHALLOW, "deep": N_DEEP,
           "batches": len(stream_res), "gen_s": gen_s,
@@ -7423,7 +7586,8 @@ def main() -> int:
 
     # 10. the process-group fabric, launches counted by route inside the
     # phase
-    parallel_launches = phase_parallel(torch, np, S, RC, R, m, step, smi)
+    parallel_launches = refresh_route("parallel", phase_parallel, torch, np,
+                                      S, RC, R, m, step, smi)
 
     # 11. the history host, launches counted by route inside the phase
     service_launches = phase_service(torch, np, S, RC, smi)
@@ -7451,12 +7615,12 @@ def main() -> int:
 
     # 16. the server's entry points over gRPC, launches counted by route
     # inside the phase
-    entry_launches = phase_entry_points(torch, np, RC, smi,
-                                        frontend_host_ms)
+    entry_launches = refresh_route("entry_points", phase_entry_points,
+                                   torch, np, RC, smi, frontend_host_ms)
 
     # 17. fault injection and the witnesses on the card, launches counted
     # by route inside the phase
-    chaos_routes = phase_chaos(RC, unpack, smi)
+    chaos_routes = refresh_route("chaos", phase_chaos, RC, unpack, smi)
 
     # 18. the static-analysis gate, the transition surface on the card and
     # the trace demo, launches counted inside the phase
@@ -7540,19 +7704,29 @@ def main() -> int:
                               "replay_assoc_lanes_and_stream":
                               seg_launches_lanes,
                               "analysis_surface": seg_launches_analysis},
+    }, {
+        "name": "refresh_tasks", "route": "cuda",
+        "source": "cadence_tpu_torch/ops/csrc/refresh_tasks.cu",
+        "replaces": "none: cadence_tpu/ops/refresh.py:79 is XLA-fused "
+                    "eager code",
+        "launches": sum(refresh_routes.values()),
+        "launches_a_step": step["refresh_launches_a_step"],
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            step, stream_step, *refresh_kernel["timed"],
+            *refresh_kernel["cases"])),
+        **{f"{k}_{t['config']}_{t['lanes']}": t[k]
+           for t in refresh_kernel["timed"]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "bound_by": refresh_kernel["timed"][0]["bound_by"],
+        "library_ms": None,
+        "step_lanes": step["lanes"], "step_ms": step["step_ms"],
+        "step_device_ms": step["step_device_ms"],
+        "step_graph_ms": step["step_graph_ms"],
+        "step_histories_per_sec": step["histories_per_sec"],
+        "stream_refresh": {k: stream_step[k] for k in (
+            "lanes", "launches", "ms", "device_ms", "bound_ms", "step_ms")},
+        "launches_by_route": refresh_routes,
     }]
-    emit({"device_passes": [{
-        "name": "refresh_tasks_device", "route": "torch ops",
-        "source": "cadence_tpu_torch/ops/refresh.py",
-        "replaces": "cadence_tpu/ops/refresh.py:79",
-        **{k: step[k] for k in ("lanes", "launches", "ms", "device_ms",
-                                "graph_ms", "bound_ms", "bound_by",
-                                "step_ms", "step_device_ms", "step_graph_ms",
-                                "histories_per_sec")},
-        "stream": {k: stream_step[k] for k in (
-            "lanes", "launches", "ms", "device_ms", "graph_ms", "bound_ms",
-            "bound_by", "step_ms")},
-    }]})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

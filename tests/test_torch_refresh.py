@@ -7,13 +7,22 @@ must agree exactly, dtypes included. States come from fuzzed replays
 and from crafted tables that hit the tie and overflow rules (equal
 expiries across slots and candidate kinds, duplicate schedule ids,
 timeouts of 0, ``ts + timeout`` wrapping int32, an expiry of exactly
-2**31 - 1). ``hydrate_tasks`` is held against the reference's and
-against the port's host ``refresh_tasks``; the replay + refresh step
-against the reference's ``replay_scan`` + ``refresh_tasks_device``."""
+2**31 - 1, ids of 2**31 - 1, negative attempts). ``hydrate_tasks`` is
+held against the reference's and against the port's host
+``refresh_tasks``; the replay + refresh step against the reference's
+``replay_scan`` + ``refresh_tasks_device``.
 
+The CUDA kernel behind ``refresh_tasks_device`` runs on the card only
+(``chip_smoke.py`` holds it against ``refresh_tasks_plain`` there on the
+same crafted states); here its launch plan, its operand checks, its C
+signature, its source's constants and the CPU route are checked."""
+
+import ctypes
 import dataclasses
 import itertools
 import random
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -34,7 +43,9 @@ from cadence_tpu_torch.core.ids import EMPTY_EVENT_ID
 from cadence_tpu_torch.core.mutable_state import MutableState
 from cadence_tpu_torch.core.state_builder import StateBuilder
 from cadence_tpu_torch.core.task_refresher import refresh_tasks
+from cadence_tpu_torch.ops import _build
 from cadence_tpu_torch.ops import pack as P
+from cadence_tpu_torch.ops import refresh as R
 from cadence_tpu_torch.ops import replay_cuda as RC
 from cadence_tpu_torch.ops import schema as S
 from cadence_tpu_torch.ops.refresh import (
@@ -44,15 +55,16 @@ from cadence_tpu_torch.ops.refresh import (
 from cadence_tpu_torch.ops.replay import replay_packed
 from cadence_tpu_torch.testing import workloads as W
 from cadence_tpu_torch.testing.event_generator import HistoryFuzzer
+from cadence_tpu_torch.testing import refresh_states as RS
+from cadence_tpu_torch.testing.refresh_states import (
+    SMALL_CAPS, crafted_state, edge_state, full_tie_state, int32_max_state,
+)
 
 from test_replay_differential import ALL_SCENARIOS
 
 RETRY_CAPS = S.Capacities(
     max_events=1024, max_activities=4, max_timers=2, max_children=2,
     max_request_cancels=2, max_signals_ext=2, max_version_items=2)
-SMALL_CAPS = S.Capacities(
-    max_events=256, max_activities=4, max_timers=3, max_children=2,
-    max_request_cancels=2, max_signals_ext=2, max_version_items=3)
 BOOL_FIELDS = ("close_transfer", "first_decision_pending")
 BIG = 2**31 - 1
 
@@ -97,62 +109,6 @@ def test_refresh_matches_reference_on_fuzzed_finals(seed, caps):
         (got.decision_transfer >= 0).any()
 
 
-def crafted_state(seed: int, b: int, caps: S.Capacities) -> S.StateTensors:
-    """State tables drawn from small value sets, so that expiries tie
-    across slots and candidate kinds, schedule ids repeat, timeouts are 0
-    or negative, ``ts + timeout`` wraps int32 and expiries land exactly
-    on 2**31 - 1."""
-    rng = np.random.default_rng(seed)
-    st = S.empty_state(b, caps)
-    ex = st.exec_info
-
-    def pick(values, shape):
-        return rng.choice(np.asarray(values, np.int64), size=shape).astype(
-            np.int32)
-
-    ex[:, S.X_STATE] = pick([0, 1, 1, 1, 2, 3], b)
-    ex[:, S.X_START_TS] = pick([1, 7, BIG - 20, -5], b)
-    ex[:, S.X_WORKFLOW_TIMEOUT] = pick([0, 19, 21, 100], b)
-    ex[:, S.X_DEC_SCHEDULE_ID] = pick([EMPTY_EVENT_ID, 3, 9], b)
-    ex[:, S.X_DEC_STARTED_ID] = pick([EMPTY_EVENT_ID, 0, 4], b)
-    ex[:, S.X_DEC_STARTED_TS] = pick([0, 5, BIG - 2], b)
-    ex[:, S.X_DEC_TIMEOUT] = pick([0, 2, 10], b)
-    ex[:, S.X_DEC_ATTEMPT] = pick([0, 1, 7], b)
-    ex[:, S.X_LAST_PROCESSED_EVENT] = pick([EMPTY_EVENT_ID, 0, 1, 6], b)
-
-    a = st.activities
-    shape = a.shape[:2]
-    a[:, :, S.AC_OCC] = pick([0, 1, 1], shape)
-    a[:, :, S.AC_SCHEDULE_ID] = pick([3, 4, 4, 8], shape)
-    a[:, :, S.AC_STARTED_ID] = pick([EMPTY_EVENT_ID, 5, 6], shape)
-    a[:, :, S.AC_SCHEDULED_TS] = pick([1, 2, BIG - 20], shape)
-    a[:, :, S.AC_STARTED_TS] = pick([0, 1, 2, BIG - 20], shape)
-    a[:, :, S.AC_LAST_HB_TS] = pick([0, 2, 3], shape)
-    for col in (S.AC_SCH_TO_START, S.AC_SCH_TO_CLOSE,
-                S.AC_START_TO_CLOSE, S.AC_HEARTBEAT):
-        a[:, :, col] = pick([0, 0, 1, 2, 19, 21, -1], shape)
-    a[:, :, S.AC_ATTEMPT] = pick([0, 1, 2, 3], shape)
-    a[:, :, S.AC_VERSION] = pick([-24, 1, 2, 5], shape)
-
-    t = st.timers
-    shape = t.shape[:2]
-    t[:, :, S.TI_OCC] = pick([0, 1, 1], shape)
-    t[:, :, S.TI_EXPIRY_TS] = pick([5, 5, BIG, -7, 9], shape)
-    t[:, :, S.TI_STARTED_ID] = pick([3, 3, 9], shape)
-    t[:, :, S.TI_VERSION] = pick([-24, 1, 4], shape)
-
-    for table, occ, init, started in (
-            (st.children, S.CH_OCC, S.CH_INITIATED_ID, S.CH_STARTED_ID),
-            (st.cancels, S.RC_OCC, S.RC_INITIATED_ID, None),
-            (st.signals, S.SG_OCC, S.SG_INITIATED_ID, None)):
-        shape = table.shape[:2]
-        table[:, :, occ] = pick([0, 1], shape)
-        table[:, :, init] = pick([11, 12, 40], shape)
-        if started is not None:
-            table[:, :, started] = pick([EMPTY_EVENT_ID, 13], shape)
-    return st
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_refresh_matches_reference_on_crafted_ties_and_overflow(seed):
     caps = SMALL_CAPS if seed % 2 else RETRY_CAPS
@@ -168,25 +124,12 @@ def test_refresh_matches_reference_on_crafted_ties_and_overflow(seed):
         "every timeout type wins somewhere"
 
 
-def _one_row(caps, **acts):
-    """A running workflow with activity slots set column by column."""
-    st = S.empty_state(1, caps)
-    st.exec_info[0, S.X_STATE] = 1
-    for col, values in acts.items():
-        st.activities[0, :len(values), getattr(S, col)] = values
-    return st
-
-
 def test_full_tie_takes_the_earlier_kind_and_its_winners():
     """Two slots with one schedule id and one expiry, one unstarted and
     one started, both armed by schedule-to-close: the unstarted kind
     comes first in the reference's order, so its slot's attempt and
     version win, not the max over both slots."""
-    caps = SMALL_CAPS
-    st = _one_row(
-        caps, AC_OCC=[1, 1], AC_SCHEDULE_ID=[4, 4],
-        AC_STARTED_ID=[EMPTY_EVENT_ID, 6], AC_SCHEDULED_TS=[10, 10],
-        AC_SCH_TO_CLOSE=[5, 5], AC_ATTEMPT=[1, 3], AC_VERSION=[2, 9])
+    st = full_tie_state(SMALL_CAPS)
     got = refresh_tasks_device(S.state_from_numpy(st, "cpu"))
     assert_refreshed_equal(got, j_refresh(st))
     assert got.activity_timer[0].tolist() == [15, 2, 4, 1, 2]
@@ -195,17 +138,169 @@ def test_full_tie_takes_the_earlier_kind_and_its_winners():
 def test_expiry_of_int32_max_reads_as_absent():
     """An armed candidate whose expiry is exactly 2**31 - 1 is no task,
     in both packages; one past it wraps negative and wins."""
-    caps = SMALL_CAPS
-    st = _one_row(caps, AC_OCC=[1], AC_SCHEDULE_ID=[4],
-                  AC_STARTED_ID=[EMPTY_EVENT_ID], AC_SCHEDULED_TS=[BIG - 5],
-                  AC_SCH_TO_START=[5])
+    st = int32_max_state(SMALL_CAPS, 5)
     got = refresh_tasks_device(S.state_from_numpy(st, "cpu"))
     assert_refreshed_equal(got, j_refresh(st))
     assert got.activity_timer[0].tolist() == [-1] * 5
-    st.activities[0, 0, S.AC_SCH_TO_START] = 6
+    st = int32_max_state(SMALL_CAPS, 6)
     got = refresh_tasks_device(S.state_from_numpy(st, "cpu"))
     assert_refreshed_equal(got, j_refresh(st))
     assert got.activity_timer[0].tolist() == [-(2**31), 1, 4, 0, 0]
+
+
+EDGE_CAPS = {"retry": RETRY_CAPS, **RS.EDGE_CAPS}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CAPS))
+def test_refresh_matches_reference_on_edge_states(name):
+    """The rules' edges, which the kernel reduces across a group of
+    threads: a least id of 2**31 - 1 makes every slot a tied winner, and
+    where every slot wins, attempt takes no 0 from a losing slot."""
+    caps = EDGE_CAPS[name]
+    st = edge_state(7, 512, caps)
+    got = refresh_tasks_device(S.state_from_numpy(st, "cpu"))
+    assert_refreshed_equal(got, j_refresh(st))
+    # the draw reaches the edges it is for
+    timer = got.activity_timer
+    assert (timer[:, 2] == BIG).any()
+    assert (got.user_timer[:, 1] == BIG).any()
+    assert ((timer[:, 1] >= 0) & (timer[:, 3] < 0)).any(), \
+        "a negative attempt wins somewhere"
+
+
+NDC_CAPS = S.Capacities(
+    max_events=1024, max_activities=32, max_timers=16, max_children=16,
+    max_request_cancels=8, max_signals_ext=8, max_version_items=8)
+
+
+@pytest.mark.parametrize("caps,group,lanes", [
+    (RETRY_CAPS, 1, 64), (NDC_CAPS, 8, 8), (S.Capacities(), 8, 8),
+    (EDGE_CAPS["odd"], 2, 32), (EDGE_CAPS["one-slot"], 1, 128),
+    (RS.HUGE_CAPS, 32, 1),
+], ids=["retry_deep", "ndc_storm", "default", "odd", "one-slot", "huge"])
+def test_refresh_plan_fits_shared_memory_and_covers_every_lane(
+        caps, group, lanes):
+    """A group of threads a lane, each taking at most 4 slots of the
+    widest table, up to a warp; the widest tile of whole warps, at most
+    256 threads, whose six slabs fit 48 KB (or one warp's worth, within
+    a block's 227 KB); each slab holds every lane of the tile, at a
+    16-byte boundary, apart from the others."""
+    plan = R.refresh_plan(caps)
+    assert (plan["group"], plan["lanes_per_block"]) == (group, lanes)
+    widest = max(caps.max_activities, caps.max_timers, caps.max_children,
+                 caps.max_request_cancels, caps.max_signals_ext)
+    assert group * 4 >= min(128, widest) and group & (group - 1) == 0
+    assert plan["threads"] == group * lanes <= 256
+    assert plan["threads"] % 32 == 0
+    assert plan["smem_bytes"] <= 48 * 1024 or lanes * group == 32
+    lane_bytes = 4 * (S.X_N + caps.max_activities * S.AC_N
+                      + caps.max_timers * S.TI_N
+                      + caps.max_children * S.CH_N
+                      + caps.max_request_cancels * S.RC_N
+                      + caps.max_signals_ext * S.SG_N)
+    # the slabs, each at a 16-byte boundary
+    assert lane_bytes * lanes <= plan["smem_bytes"] < (
+        lane_bytes * lanes + 6 * 16)
+    assert plan["smem_bytes"] <= 232448
+    # the huge caps take the path past 48 KB, which chip_smoke.py keeps
+    assert (plan["smem_bytes"] > 48 * 1024) == (caps is RS.HUGE_CAPS)
+    slots = (1, caps.max_activities, caps.max_timers, caps.max_children,
+             caps.max_request_cancels, caps.max_signals_ext)
+    widths = (S.X_N, S.AC_N, S.TI_N, S.CH_N, S.RC_N, S.SG_N)
+    offs = R._slabs(lanes, slots[1:])
+    assert offs[0] == 0 and 4 * offs[-1] == plan["smem_bytes"]
+    for lo, hi, n, w in zip(offs, offs[1:], slots, widths):
+        assert lo % 4 == 0 and lanes * n * w <= hi - lo < lanes * n * w + 4
+
+
+def test_refresh_plan_refuses_tables_past_shared_memory():
+    with pytest.raises(ValueError, match="do not fit shared memory"):
+        R.refresh_plan(S.Capacities(max_activities=4000))
+
+
+def _cpu_state(b=8):
+    return S.state_from_numpy(crafted_state(3, b, RETRY_CAPS), "cpu")
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("non_contiguous", "activities must be contiguous"),
+    ("dtype", "timers must be int32"),
+    ("batch", r"children must be \[8, n, 8\]"),
+    ("fields", r"signals must be \[8, n, 4\]"),
+    ("numpy", "cancels must be a torch tensor"),
+])
+def test_refresh_operand_checks_refuse(fault, match):
+    """The kernel's operands: six contiguous int32 tables on one device,
+    their batch and field widths agreeing."""
+    st = _cpu_state()
+    assert R.check_refresh_operands(st) == (8, 4, 2, 2, 2, 2)
+    if fault == "non_contiguous":
+        st.activities = st.activities.transpose(0, 1).contiguous(
+        ).transpose(0, 1)
+    elif fault == "dtype":
+        st.timers = st.timers.to(torch.int64)
+    elif fault == "batch":
+        st.children = st.children[:7]
+    elif fault == "fields":
+        st.signals = st.signals[:, :, :3].contiguous()
+    else:
+        st.cancels = st.cancels.numpy()
+    with pytest.raises(ValueError, match=match):
+        R.check_refresh_operands(st)
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    """CPU tensors run ``refresh_tasks_plain``: no kernel library loaded,
+    no launch counted, the same arrays."""
+    def no_library(name):
+        raise AssertionError(f"the CPU route loaded {name}")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    st = _cpu_state(64)
+    before = refresh_tasks_device.launches
+    got = refresh_tasks_device(st)
+    assert refresh_tasks_device.launches == before
+    want = R.refresh_tasks_plain(st)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+REFRESH_CU = (Path(__file__).resolve().parents[1]
+              / "cadence_tpu_torch/ops/csrc/refresh_tasks.cu")
+
+
+def test_refresh_signature_passes_pointers_and_stream_as_void_p():
+    """ctypes passes each of the C entry's pointers and its stream as a
+    c_void_p (a c_int would cut a 64-bit pointer), each int as a c_int."""
+    assert "refresh_tasks" in _build.KERNELS
+    restype, args = _build._SIGNATURES["refresh_tasks"][
+        "cadence_refresh_tasks"]
+    assert restype is ctypes.c_int
+    src = REFRESH_CU.read_text()
+    proto = src[src.index("int cadence_refresh_tasks("):]
+    params = [p.strip() for p in
+              proto[proto.index("(") + 1:proto.index(")")].split(",")]
+    assert len(params) == len(args) == 34
+    for p, a in zip(params, args):
+        assert a is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
+    assert params[-2] == "void* stream"
+
+
+def test_refresh_kernel_source_matches_schema():
+    """The kernel spells out the columns it reads, the sentinels and the
+    output order; keep them in step with Python."""
+    src = REFRESH_CU.read_text()
+    consts = re.findall(r"\b((?:X|AC|TI|CH)_[A-Z0-9_]+) = (-?\d+)", src)
+    assert len(consts) >= 25
+    for name, value in consts:
+        assert getattr(S, name) == int(value), name
+    assert f"EMPTY_EVENT_ID = {EMPTY_EVENT_ID};" in src
+    assert S.RC_OCC == S.SG_OCC == 0 and "EXT_OCC = 0" in src
+    assert S.RC_INITIATED_ID == S.SG_INITIATED_ID == 2
+    assert "EXT_INITIATED_ID = 2" in src and S.RC_N == S.SG_N == 4
+    body = src[src.index("struct Outs {"):]
+    body = body[:body.index("};")]
+    assert re.findall(r"\* (\w+);", body) == list(FIELDS)
 
 
 def test_refresh_makes_no_host_synchronisation():
