@@ -8,12 +8,15 @@ seconds. The library's file name carries a hash of its source and flags,
 so an edited source is rebuilt and a stale library is never loaded.
 
 ``build(names)`` compiles several kernels at once, one ``nvcc`` process
-each, all started together.
+each, all started together. ``call`` reaches a kernel's entry point, and
+``card`` gives the limits of the card that the launch plans read.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -40,10 +45,6 @@ _SIGNATURES = {
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ]),
-        "cadence_replay_fsm_plan": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
         ]),
         "cadence_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
@@ -138,3 +139,57 @@ def load(name: str) -> ctypes.CDLL:
 
 
 KERNELS = tuple(_SIGNATURES)
+
+
+def call(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call entry point ``entry`` of kernel ``name``'s library with
+    ``args``, then the current stream of CUDA ``device`` and its index,
+    which every entry point takes last; raise RuntimeError with the
+    decoded cudaError_t that it returns."""
+    lib = load(name)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    err = getattr(lib, entry)(
+        *args, torch.cuda.current_stream(device).cuda_stream, index)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.cadence_cuda_error_string(err).decode())
+
+
+# threads a warp
+WARP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Card:
+    """The limits of a card that the kernels' launch plans read."""
+
+    sms: int            # streaming multiprocessors
+    sm_smem: int        # shared memory of one SM, bytes
+    block_smem: int     # the most dynamic shared memory a block opts in to
+    reserved_smem: int  # what the card reserves of an SM's for each block
+
+
+# an H100: the card the kernels are built for (sm_90a), and the limits a
+# plan takes where there is no card to ask. torch does not report the
+# reserve, 1 KB a block on Hopper, so every card takes this one.
+H100 = Card(sms=132, sm_smem=233_472, block_smem=232_448,
+            reserved_smem=1_024)
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_card(index: int) -> Card:
+    props = torch.cuda.get_device_properties(index)
+    return Card(sms=props.multi_processor_count,
+                sm_smem=props.shared_memory_per_multiprocessor,
+                block_smem=props.shared_memory_per_block_optin,
+                reserved_smem=H100.reserved_smem)
+
+
+def card(device: torch.device) -> Card:
+    """The limits of ``device``: a CUDA card's, read once; the H100's for
+    any other device."""
+    if device.type != "cuda":
+        return H100
+    return _cuda_card(device.index if device.index is not None
+                      else torch.cuda.current_device())

@@ -114,17 +114,9 @@ def affine_segscan(mul: torch.Tensor, add: torch.Tensor, rst: torch.Tensor):
         return pm, pa
     from . import _build
 
-    lib = _build.load("affine_segscan")
-    dev = mul.device
-    err = lib.cadence_affine_segscan(
-        mul.data_ptr(), add.data_ptr(), rst.data_ptr(), pm.data_ptr(),
-        pa.data_ptr(), T, L, C, torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-    )
-    if err:
-        raise RuntimeError(
-            "affine_segscan kernel launch failed: "
-            + lib.cadence_cuda_error_string(err).decode())
+    _build.call("affine_segscan", "cadence_affine_segscan", mul.device,
+                mul.data_ptr(), add.data_ptr(), rst.data_ptr(),
+                pm.data_ptr(), pa.data_ptr(), T, L, C)
     affine_segscan.launches += 1
     return pm, pa
 

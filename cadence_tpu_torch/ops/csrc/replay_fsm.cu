@@ -14,8 +14,8 @@
 // lane against T x 64 bytes of int32 events). The lanes of a warp replay
 // different histories, so one step runs several event types' code, and
 // those divergent paths take issue slots; on the int16 stream, whose
-// bytes take less time, that issue time bounds the kernel
-// (testing/kernel_ablate.py times it). Two routes hold the state:
+// bytes take less time, that issue time bounds the kernel. Two routes
+// hold the state:
 // - the shared route keeps a lane's whole state on chip, its slot tables
 //   in the warp's shared tile at 4 x (R_pad - 26) bytes a lane (504 B at
 //   the retry_deep caps, so about 8 warps fit an SM): the event stream
@@ -33,9 +33,9 @@
 //   warps hide each other's latency. The event stream, read once, is
 //   copied under an L2 evict-first policy, so that L2 keeps the tables'
 //   lines and merges more of their partial writes before they reach
-//   device memory. ops/replay_cuda.py replay_route
-//   picks the wide route from the shape: where the shared tile holds at
-//   most one warp an SM and the batch needs more than one round of them.
+//   device memory. ops/replay_cuda.py replay_route picks the wide route
+//   from the shape: where the shared tile holds at most one warp an SM
+//   and the batch needs more than one round of them.
 //
 // What the design does about it:
 // - every warp keeps a private ring of STAGES stages in shared memory,
@@ -47,12 +47,11 @@
 //   applies. The bytes in flight no longer depend on registers or on the
 //   width of a field. The rings are per warp, so warps wait on their own
 //   copies (cp.async.wait_group + __syncwarp) and never on each other;
-// - on the shared route the launcher takes the deepest ring that keeps
-//   the launch at its fewest rounds of resident blocks: a warp's 1,024
-//   steps run in order, so the rounds set the time, and within them a
-//   deeper ring hides more memory latency and pays its per-stage wait
-//   less often. On the wide route it takes the deepest ring at which
-//   the block (4 warps, ops/replay_cuda.py) is resident on an SM;
+// - the launch plan (ops/replay_cuda.py launch_plan) owns the whole
+//   geometry: route, lanes, ring depth, request width and shared bytes.
+//   On the shared route it takes the deepest ring that keeps the launch
+//   at its fewest rounds of resident blocks; on the wide route, the
+//   deepest at which the block (4 warps) is resident on an SM;
 // - events are field-major [T, P, B] with the lane minor, so a stage is
 //   ksteps * P rows of 32 lanes: every request is coalesced, and each
 //   thread reads its fields from shared memory lane-minor, free of bank
@@ -83,10 +82,10 @@
 //   packed route flushes between 16-step launches; here one launch covers
 //   every step and segments need no alignment.
 //
-// Row offsets and capacities are runtime parameters, so one build serves
-// every Capacities. The launch allocates nothing, runs on the caller's
-// stream and returns a cudaError_t; the Python wrapper (ops/replay_cuda.py)
-// raises on a non-zero code.
+// Row offsets, capacities and the launch geometry are runtime parameters,
+// so one build serves every Capacities. The launch allocates nothing,
+// runs on the caller's stream and returns a cudaError_t; the Python
+// wrapper (ops/replay_cuda.py) raises on a non-zero code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,10 +180,13 @@ struct Params {
   int cap_a, cap_t, cap_c, cap_rc, cap_sg, cap_v;
   int wide_mask;
   int route;  // 0: the shared route, 1: the wide route
+  // steps per ring stage, bytes per copy request, dynamic shared memory
+  // per block
+  int ksteps, vec, smem;
   int phys[EV_N];
   int base[EV_N];
 };
-constexpr int N_PARAMS = 23 + 2 * EV_N;
+constexpr int N_PARAMS = 26 + 2 * EV_N;
 static_assert(sizeof(Params) == N_PARAMS * sizeof(int), "packed params");
 
 // Ring depth per warp: STAGES - 1 stages in flight while one applies.
@@ -249,7 +251,7 @@ __device__ __forceinline__ void copy_request(EvT* dst, const EvT* src,
 // The warp fills one stage: `nrows` consecutive [32]-lane rows of the
 // field-major event tensor, starting at row `row0` of [T * P, B], into
 // dst[nrows][32]. A request covers KE lanes; the batch width is a
-// multiple of KE (the launcher chose VEC so), so a request lies wholly
+// multiple of KE (the launch plan chose VEC so), so a request lies wholly
 // inside or wholly past the batch, and past it nothing is copied.
 template <int VEC, bool EVICT, typename EvT>
 __device__ __forceinline__ void fill_rows(const EvT* __restrict__ ev,
@@ -696,8 +698,7 @@ struct Segments {
 template <typename EvT, bool WIDE>
 __global__ void __launch_bounds__(128)
 replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
-                  int* rows_out, const Segments sg, const Params p,
-                  int ksteps, int vec) {
+                  int* rows_out, const Segments sg, const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
@@ -717,6 +718,7 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
   const Rows<WIDE> R{
       reinterpret_cast<int*>(smem) + (size_t)warp * tile_rows * WARP + lane,
       rows_out + (X_ROWS + 1) * B + b, B};
+  const int ksteps = p.ksteps;
   const int stage_elems = ksteps * p.P * WARP;
   EvT* ring =
       reinterpret_cast<EvT*>(smem + (size_t)warps * tile_rows * WARP * 4) +
@@ -749,7 +751,7 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
     const int t = p.t0 + s * ksteps;
     const int nk = min(ksteps, p.t1 - t);
     fill_stage<WIDE>(ev, ring + (s % STAGES) * stage_elems, (size_t)t * p.P,
-                     nk * p.P, p.B, b_warp, lane, vec, pol);
+                     nk * p.P, p.B, b_warp, lane, p.vec, pol);
   };
   // one commit group per stage, empty past the window, so that
   // wait_group<STAGES - 2> always means "stage s has landed"
@@ -793,20 +795,6 @@ replay_fsm_kernel(const EvT* __restrict__ ev, const int* rows_in,
   if (live) store_column(ls, R, p, rs, rows_out, B, b, false);
 }
 
-// Launch geometry of one call.
-struct Plan {
-  int lanes;     // threads (lanes) per block
-  int ksteps;    // steps per ring stage
-  int vec;       // bytes per copy request
-  size_t smem;   // dynamic shared memory per block
-  int blocks;    // blocks resident per SM
-};
-
-int device_attr(cudaDeviceAttr a, int device, int fallback) {
-  int v = 0;
-  return cudaDeviceGetAttribute(&v, a, device) == cudaSuccess ? v : fallback;
-}
-
 // Sets the launch attributes of kernel `fn` for `smem` bytes of dynamic
 // shared memory, the carveout at its most shared.
 cudaError_t set_smem(const void* fn, size_t smem) {
@@ -818,113 +806,41 @@ cudaError_t set_smem(const void* fn, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// vec: the widest request (16, 8, 4 or, int16 only, 2 bytes) that the
-// base address and the row pitch B * elem both allow.
-//
-// ksteps, shared route: the deepest ring that keeps the launch at its
-// fewest rounds of resident blocks. A warp runs its lanes' steps in
-// order, so a launch takes as many rounds as the SMs need to hold all its
-// blocks; within that count, fewer resident warps contend less for issue
-// and a deeper ring keeps more steps in flight and pays its per-stage
-// wait less often.
-//
-// ksteps, wide route: the deepest ring at which one block is resident on
-// an SM, by the occupancy calculator (shared memory and registers). The
-// block's lanes (ops/replay_cuda.py) set the warps an SM.
-template <typename EvT>
-cudaError_t make_plan(const void* events, const Params& p, int device,
-                      Plan* out) {
-  const int elem = (int)sizeof(EvT);
-  int vec = 16;
-  while (vec > elem && ((((size_t)p.B * elem) % vec) != 0 ||
-                        (reinterpret_cast<uintptr_t>(events) % vec) != 0))
-    vec /= 2;
-  const int warps = p.lanes / WARP;
-  const int tile_rows = p.route ? p.vhlen : p.R - X_ROWS - 1;
-  const size_t state = (size_t)tile_rows * p.lanes * 4;
-  const size_t step_w = (size_t)p.P * WARP * elem;
-  const int sm_smem = device_attr(
-      cudaDevAttrMaxSharedMemoryPerMultiprocessor, device, 233472);
-  const int blk_smem = device_attr(
-      cudaDevAttrMaxSharedMemoryPerBlockOptin, device, 232448);
-  const int reserved = device_attr(
-      cudaDevAttrReservedSharedMemoryPerBlock, device, 1024);
-  const int sms = device_attr(cudaDevAttrMultiProcessorCount, device, 132);
-  auto smem_of = [&](int k) {
-    return state + (size_t)warps * STAGES * k * step_w;
-  };
-  int k = 0;
-  long blocks = 0;
-  if (p.route) {
-    auto* fn = replay_fsm_kernel<EvT, true>;
-    cudaError_t e = set_smem(reinterpret_cast<const void*>(fn), blk_smem);
-    if (e != cudaSuccess) return e;
-    for (int kk = MAX_KSTEPS; kk >= 1; --kk) {
-      if (smem_of(kk) > (size_t)blk_smem) continue;
-      int fit = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, p.lanes,
-                                                        smem_of(kk));
-      if (e != cudaSuccess) return e;
-      if (fit > 0) {
-        k = kk;
-        blocks = fit;
-        break;
-      }
-    }
-  } else {
-    const long grid = (p.B + p.lanes - 1) / p.lanes;
-    long rounds = LONG_MAX;
-    for (int kk = 1; kk <= MAX_KSTEPS && smem_of(kk) <= (size_t)blk_smem;
-         ++kk) {
-      const long fit = (long)(sm_smem / (smem_of(kk) + reserved));
-      if (fit == 0) break;
-      const long r = (grid + sms * fit - 1) / (sms * fit);
-      if (r <= rounds) {  // rounds only grow with kk: the last tie wins
-        rounds = r;
-        k = kk;
-        blocks = fit;
-      }
-    }
-  }
-  if (k == 0) return cudaErrorInvalidValue;
-  *out = Plan{p.lanes, k, vec, smem_of(k), (int)blocks};
-  return cudaSuccess;
-}
-
 template <typename EvT, bool WIDE>
 cudaError_t launch_route(const void* events, const int* rows_in,
                          int* rows_out, const Segments& sg, const Params& p,
-                         const Plan& pl, cudaStream_t stream) {
+                         cudaStream_t stream) {
   auto* fn = replay_fsm_kernel<EvT, WIDE>;
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(fn), pl.smem);
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(fn), p.smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.B + p.lanes - 1) / p.lanes);
-  fn<<<grid, p.lanes, pl.smem, stream>>>(static_cast<const EvT*>(events),
-                                         rows_in, rows_out, sg, p, pl.ksteps,
-                                         pl.vec);
+  fn<<<grid, p.lanes, p.smem, stream>>>(static_cast<const EvT*>(events),
+                                        rows_in, rows_out, sg, p);
   return cudaGetLastError();
 }
 
 template <typename EvT>
 cudaError_t launch(const void* events, const int* rows_in, int* rows_out,
-                   const Segments& sg, const Params& p, int device,
-                   cudaStream_t stream) {
-  Plan pl;
-  cudaError_t e = make_plan<EvT>(events, p, device, &pl);
-  if (e != cudaSuccess) return e;
+                   const Segments& sg, const Params& p, cudaStream_t stream) {
   return p.route
-             ? launch_route<EvT, true>(events, rows_in, rows_out, sg, p, pl,
+             ? launch_route<EvT, true>(events, rows_in, rows_out, sg, p,
                                        stream)
-             : launch_route<EvT, false>(events, rows_in, rows_out, sg, p, pl,
+             : launch_route<EvT, false>(events, rows_in, rows_out, sg, p,
                                         stream);
 }
 
 // Copies the host parameter block, checks it, and rebases the row
-// offsets past the exec rows (which the kernel keeps in registers).
-int read_params(const int* hp, int n_params, int ev_int16, Params* p) {
+// offsets past the exec rows (which the kernel keeps in registers). The
+// launch geometry must be one the kernel can run: 1 to MAX_KSTEPS steps a
+// stage; 16-, 8- or 4-byte requests (2-byte ones on the int16 stream)
+// that the events' base address and row pitch allow; shared memory for
+// every warp's tile and ring.
+int read_params(const int* hp, int n_params, const void* events,
+                int ev_int16, Params* p) {
   if (n_params != N_PARAMS) return (int)cudaErrorInvalidValue;
   int* dst = reinterpret_cast<int*>(p);
   for (int i = 0; i < N_PARAMS; ++i) dst[i] = hp[i];
+  const int elem = ev_int16 ? 2 : 4;
   if (p->B <= 0 || p->lanes <= 0 || p->lanes > 128 || p->lanes % WARP ||
       p->exec0 != 0 || p->vh0 != X_ROWS || p->R <= X_ROWS ||
       p->t0 < 0 || p->t0 > p->t1 || p->t1 > p->T ||
@@ -934,6 +850,16 @@ int read_params(const int* hp, int n_params, int ev_int16, Params* p) {
   // the vh_len row follows the version-history items and precedes the
   // slot tables (ops/replay_cuda.py RowMap); it lives in a register
   if (p->vhlen != p->vh0 + 2 * p->cap_v || p->act0 != p->vhlen + 1)
+    return (int)cudaErrorInvalidValue;
+  if (p->ksteps < 1 || p->ksteps > MAX_KSTEPS ||
+      (p->vec != 16 && p->vec != 8 && p->vec != 4 && p->vec != elem) ||
+      reinterpret_cast<uintptr_t>(events) % p->vec != 0 ||
+      ((size_t)p->B * elem) % p->vec != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t tile_rows = p->route ? 2 * p->cap_v : p->R - X_ROWS - 1;
+  const size_t need = tile_rows * p->lanes * 4 +
+                      (size_t)p->lanes * STAGES * p->ksteps * p->P * elem;
+  if (p->smem < 0 || (size_t)p->smem < need)
     return (int)cudaErrorInvalidValue;
   p->vh0 -= X_ROWS;
   p->vhlen -= X_ROWS;
@@ -952,9 +878,10 @@ extern "C" {
 // Replays steps [t0, t1) of events [T, P, B] (int32, or int16 when
 // ev_int16) onto rows_in [R, B] int32, writing rows_out [R, B] (may alias
 // rows_in). hp: the N_PARAMS ints of Params; its route field picks the
-// shared or the wide route (ops/replay_cuda.py replay_route). The wide
-// route updates the slot tables in rows_out while it runs, so out_rows
-// and init_rows below must not alias rows_out.
+// shared or the wide route, and its geometry is the launch plan's
+// (ops/replay_cuda.py launch_plan). The wide route updates the slot
+// tables in rows_out while it runs, so out_rows and init_rows below must
+// not alias rows_out.
 //
 // Lane-packed route, when seg_ptr is not null: seg_ptr [B + 1] and
 // seg_ends [n, 3] list each lane's segment ends (end step, output column,
@@ -970,7 +897,7 @@ int cadence_replay_fsm(const void* events, int ev_int16, const int* rows_in,
                        const int* init_rows, int n_init, const int* hp,
                        int n_params, void* stream, int device) {
   Params p;
-  int bad = read_params(hp, n_params, ev_int16, &p);
+  int bad = read_params(hp, n_params, events, ev_int16, &p);
   if (bad) return bad;
   if (seg_ptr != nullptr && (n_out < 0 || n_init < 0))
     return (int)cudaErrorInvalidValue;
@@ -978,32 +905,9 @@ int cadence_replay_fsm(const void* events, int ev_int16, const int* rows_in,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = ev_int16 ? launch<int16_t>(events, rows_in, rows_out, sg, p, device, s)
-               : launch<int32_t>(events, rows_in, rows_out, sg, p, device, s);
+  e = ev_int16 ? launch<int16_t>(events, rows_in, rows_out, sg, p, s)
+               : launch<int32_t>(events, rows_in, rows_out, sg, p, s);
   return (int)e;
-}
-
-// The launch geometry cadence_replay_fsm would use for these arguments:
-// out[0..4] = lanes per block, steps per ring stage, bytes per copy
-// request, dynamic shared memory per block, blocks resident per SM (the
-// occupancy calculator's count on the wide route, the shared memory's on
-// the shared route).
-// Returns a cudaError_t.
-int cadence_replay_fsm_plan(const void* events, int ev_int16, const int* hp,
-                            int n_params, int device, int* out) {
-  Params p;
-  int bad = read_params(hp, n_params, ev_int16, &p);
-  if (bad) return bad;
-  Plan pl;
-  cudaError_t e = ev_int16 ? make_plan<int16_t>(events, p, device, &pl)
-                           : make_plan<int32_t>(events, p, device, &pl);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = pl.lanes;
-  out[1] = pl.ksteps;
-  out[2] = pl.vec;
-  out[3] = (int)pl.smem;
-  out[4] = pl.blocks;
-  return 0;
 }
 
 const char* cadence_cuda_error_string(int code) {

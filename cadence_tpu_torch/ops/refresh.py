@@ -37,7 +37,7 @@ from ..core.enums import TimeoutType, TimerTaskType, WorkflowState
 from ..core.ids import EMPTY_EVENT_ID
 from ..core.mutable_state import SECOND
 from ..utils.tracing import device_span
-from . import schema as S
+from . import _build, schema as S
 from .pack import PackedHistories
 
 _BIG = 2**31 - 1
@@ -149,13 +149,10 @@ def _user_timer(tmr: torch.Tensor, running: torch.Tensor) -> torch.Tensor:
 
 
 # the refresh kernel's geometry, owned here and passed to the kernel:
-# threads a block at most, and the dynamic shared memory a block may use
-# on Hopper; the tile a block takes stays within the 48 KB a block gets
-# without opting in, so that several blocks share an SM
+# threads a block at most; the tile a block takes stays within the 48 KB
+# a block gets without opting in, so that several blocks share an SM
 _THREADS = 256
-_SMEM_LIMIT = 232_448
 _SMEM_TILE = 48 * 1024
-_WARP = 32
 # slots of the widest table a thread takes
 _SLOTS_A_THREAD = 4
 # int32 of each table the kernel stages: a lane's exec_info row, then one
@@ -174,19 +171,20 @@ def _slabs(lanes: int, slots: Tuple[int, ...]) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(slots: Tuple[int, ...]) -> Tuple[int, int, Tuple[int, ...]]:
+def _plan(slots: Tuple[int, ...],
+          card: _build.Card) -> Tuple[int, int, Tuple[int, ...]]:
     """(group, lanes, ``_slabs``) of ``refresh_plan`` for the slot counts
-    (A, TM, C, RC, SG)."""
+    (A, TM, C, RC, SG) on ``card``."""
     quarter = -(-max(slots + (1,)) // _SLOTS_A_THREAD)
-    group = min(_WARP, 1 << (quarter - 1).bit_length())
+    group = min(_build.WARP, 1 << (quarter - 1).bit_length())
     # whole warps, at most _THREADS threads, the widest tile within
     # _SMEM_TILE
-    lanes = _WARP // group
+    lanes = _build.WARP // group
     while (2 * lanes * group <= _THREADS
            and 4 * _slabs(2 * lanes, slots)[-1] <= _SMEM_TILE):
         lanes *= 2
     slabs = _slabs(lanes, slots)
-    if 4 * slabs[-1] > _SMEM_LIMIT:
+    if 4 * slabs[-1] > card.block_smem:
         raise ValueError(
             f"slot tables {slots} do not fit shared memory at {lanes} "
             "lanes a block")
@@ -194,18 +192,18 @@ def _plan(slots: Tuple[int, ...]) -> Tuple[int, int, Tuple[int, ...]]:
 
 
 def refresh_plan(caps: S.Capacities) -> dict:
-    """The refresh kernel's launch geometry at ``caps``: ``group`` threads
-    a lane (the power of two at or above a quarter of the widest slot
-    table, at most a warp: a thread takes up to 4 of its slots),
-    ``lanes_per_block`` (the most, a power of two, whose slabs of the six
-    tables fit 48 KB of shared memory, with whole warps and at most 256
-    threads), ``threads`` and ``smem_bytes`` a block. The shapes alone
-    decide it. Timed on an H100 over every geometry (PERF.md): 1 thread
-    and 64 lanes at the retry_deep caps, 8 threads and 8 lanes at the
-    default ones."""
+    """The refresh kernel's launch geometry at ``caps`` on an H100:
+    ``group`` threads a lane (the power of two at or above a quarter of
+    the widest slot table, at most a warp: a thread takes up to 4 of its
+    slots), ``lanes_per_block`` (the most, a power of two, whose slabs of
+    the six tables fit 48 KB of shared memory, with whole warps and at
+    most 256 threads), ``threads`` and ``smem_bytes`` a block. The shapes
+    alone decide it. Timed on an H100 over every geometry (PERF.md): 1
+    thread and 64 lanes at the retry_deep caps, 8 threads and 8 lanes at
+    the default ones."""
     group, lanes, slabs = _plan((
         caps.max_activities, caps.max_timers, caps.max_children,
-        caps.max_request_cancels, caps.max_signals_ext))
+        caps.max_request_cancels, caps.max_signals_ext), _build.H100)
     return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
                 smem_bytes=4 * slabs[-1])
 
@@ -245,8 +243,8 @@ def _launch(state: S.StateTensors) -> RefreshedTasks:
     """Check the operands, allocate the outputs and launch
     cadence_refresh_tasks on the current stream."""
     b, a, tm, c, rc, sg = dims = check_refresh_operands(state)
-    group, lanes, slabs = _plan(dims[1:])
     dev = state.exec_info.device
+    group, lanes, slabs = _plan(dims[1:], _build.card(dev))
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -263,18 +261,10 @@ def _launch(state: S.StateTensors) -> RefreshedTasks:
     )
     if b == 0:
         return out
-    from . import _build
-
-    lib = _build.load("refresh_tasks")
-    err = lib.cadence_refresh_tasks(
-        *(getattr(state, name).data_ptr() for name in _TABLES),
-        *(getattr(out, f).data_ptr() for f in FIELDS),
-        b, a, tm, c, rc, sg, group, lanes, *slabs[1:],
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
-    if err:
-        raise RuntimeError(
-            "refresh_tasks kernel launch failed: "
-            + lib.cadence_cuda_error_string(err).decode())
+    _build.call("refresh_tasks", "cadence_refresh_tasks", dev,
+                *(getattr(state, name).data_ptr() for name in _TABLES),
+                *(getattr(out, f).data_ptr() for f in FIELDS),
+                b, a, tm, c, rc, sg, group, lanes, *slabs[1:])
     refresh_tasks_device.launches += 1
     return out
 

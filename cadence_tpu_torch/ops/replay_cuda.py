@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +47,7 @@ from ..core.enums import (
 from ..core.ids import EMPTY_EVENT_ID, EMPTY_VERSION
 from ..utils.tracing import device_span
 
-from . import schema as S
+from . import _build, schema as S
 
 # the layers' spans on the profiler's timeline (utils/tracing.device_span):
 # the state's copies into and out of the row layout, and the FSM replay
@@ -608,27 +609,20 @@ def replay_rows_packed_plain(events: torch.Tensor, rows: torch.Tensor,
 # --------------------------------------------------------------------------
 
 # host parameter block of cadence_replay_fsm (csrc/replay_fsm.cu, Params)
-_N_PARAMS = 23 + 2 * S.EV_N
+_N_PARAMS = 26 + 2 * S.EV_N
 # index of the route in the block
 _ROUTE_PARAM = 22
 
-# shared memory a block may use on Hopper (227 KB)
-_SMEM_LIMIT = 232448
-# stages of each warp's event ring (csrc/replay_fsm.cu, STAGES)
+# stages of each warp's event ring, and the most steps a stage holds
+# (csrc/replay_fsm.cu, STAGES and MAX_KSTEPS)
 _RING_STAGES = 3
+_MAX_KSTEPS = 16
 # blocks a launch should make where the batch allows: about two per SM of
-# an H100 (132 SMs)
+# an H100
 _MIN_BLOCKS = 256
-# an H100's SMs, the shared memory of one SM (228 KB) and what the card
-# reserves of it for each block: what the route is chosen by where there
-# is no card to ask
-_SMS = 132
-_SM_SMEM = 233472
-_SMEM_RESERVED = 1024
-_WARP = 32
 # lanes per block on the wide route: 4 warps, and one such block resident
-# on an SM (the kernel's plan sizes its ring so); of 2, 4, 6, 8 and 16
-# warps an SM, 4 timed fastest at the ndc storm's shape (PERF.md)
+# on an SM (the plan sizes its ring so); of 2, 4, 6, 8 and 16 warps an SM,
+# 4 timed fastest at the ndc storm's shape (PERF.md)
 _WIDE_LANES = 128
 ROUTES = ("shared", "wide")
 
@@ -641,14 +635,15 @@ def _lane_smem(rows_padded: int) -> int:
     return (rows_padded - S.X_N - 1) * 4 + _RING_STAGES * 4 * S.EV_N
 
 
-def lanes_per_block(rows_padded: int, batch: Optional[int] = None) -> int:
-    """History lanes (threads) per block: the widest of 128/64/32 whose
-    block fits in shared memory with one step a ring stage and, given the
-    ``batch`` width, still makes ``_MIN_BLOCKS`` blocks; the narrowest
-    that fits when none does, so that a narrow batch spreads over the
-    SMs."""
+def lanes_per_block(rows_padded: int, batch: Optional[int] = None,
+                    card: _build.Card = _build.H100) -> int:
+    """History lanes (threads) per block on the shared route: the widest
+    of 128/64/32 whose block fits in ``card``'s shared memory with one
+    step a ring stage and, given the ``batch`` width, still makes
+    ``_MIN_BLOCKS`` blocks; the narrowest that fits when none does, so
+    that a narrow batch spreads over the SMs."""
     fits = [lanes for lanes in (128, 64, 32)
-            if lanes * _lane_smem(rows_padded) <= _SMEM_LIMIT]
+            if lanes * _lane_smem(rows_padded) <= card.block_smem]
     if not fits:
         raise ValueError(
             f"{rows_padded} state rows do not fit shared memory at 32 lanes")
@@ -660,16 +655,15 @@ def lanes_per_block(rows_padded: int, batch: Optional[int] = None) -> int:
     return fits[-1]
 
 
-def replay_route(rows_padded: int, batch: int, sms: int = _SMS,
-                 sm_smem: int = _SM_SMEM) -> str:
+def replay_route(rows_padded: int, batch: int,
+                 card: _build.Card = _build.H100) -> str:
     """The kernel's route for a batch of ``batch`` lanes at
-    ``rows_padded`` state rows on a card of ``sms`` SMs with ``sm_smem``
-    bytes of shared memory each.
+    ``rows_padded`` state rows on ``card``.
 
     ``"wide"`` where the shared route's state tile (one warp's, with a
     ring of one step a stage) lets at most one warp reside on an SM and
-    the batch needs more than one round of such warps: more than ``sms``
-    warps. There the slot tables stay in device memory and many warps
+    the batch needs more than one round of such warps: more warps than
+    SMs. There the slot tables stay in device memory and many warps
     share an SM. ``"shared"`` otherwise: the whole state on chip, which
     is fastest where the tile leaves room for several warps, or where the
     batch's warps all reside in one round.
@@ -677,20 +671,83 @@ def replay_route(rows_padded: int, batch: int, sms: int = _SMS,
     Timed on an H100 (PERF.md): at R_pad 944 the shared route is 7%
     faster up to 4,096 lanes and the wide one 1.8x faster from 4,352 (3.2x
     at 32,768); at R_pad 152 the shared route is 1.5x faster."""
-    warp_smem = _WARP * _lane_smem(rows_padded) + _SMEM_RESERVED
-    if sm_smem // warp_smem <= 1 and batch > sms * _WARP:
+    warp_smem = _build.WARP * _lane_smem(rows_padded) + card.reserved_smem
+    if card.sm_smem // warp_smem <= 1 and batch > card.sms * _build.WARP:
         return "wide"
     return "shared"
 
 
-def _card(dev) -> tuple:
-    """(SMs, shared memory of an SM) of CUDA device ``dev``; the H100's
-    for any other device."""
-    if dev.type != "cuda":
-        return _SMS, _SM_SMEM
-    props = torch.cuda.get_device_properties(_device_index(dev))
-    return (props.multi_processor_count,
-            getattr(props, "shared_memory_per_multiprocessor", _SM_SMEM))
+class Plan(NamedTuple):
+    """The launch geometry of one call of the kernel."""
+
+    lanes_per_block: int
+    steps_per_stage: int  # steps a ring stage holds: ksteps
+    request_bytes: int    # bytes a copy request: vec
+    smem_bytes: int       # dynamic shared memory a block
+    blocks_per_sm: int    # blocks resident on an SM
+    route: str
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(rm: RowMap, batch: int, elem: int, fields: int, align: int,
+                card: _build.Card = _build.H100) -> Plan:
+    """The kernel's whole launch geometry for ``batch`` lanes at ``rm``'s
+    rows, events of ``fields`` columns of ``elem`` bytes whose base
+    address is ``align`` modulo 16, on ``card``; the kernel takes it in
+    its parameter block and checks it.
+
+    The route is ``replay_route``'s; the request width the widest of 16,
+    8, 4 or (int16 only) 2 bytes that the base address and the row pitch
+    allow. The ring depth, on the shared route: the deepest that keeps
+    the launch at its fewest rounds of resident blocks (a warp runs its
+    steps in order, so the rounds set the time; within them a deeper ring
+    hides more latency and waits less often). On the wide route: the
+    deepest at which one block is resident on an SM, which shared memory
+    alone decides (at 128 threads a block even 255 registers a thread
+    take half an SM's 65,536)."""
+    route = replay_route(rm.rows_padded, batch, card)
+    wide = route == "wide"
+    lanes = (_WIDE_LANES if wide
+             else lanes_per_block(rm.rows_padded, batch, card))
+    # a warp's shared tile: the version-history items on the wide route;
+    # on the shared one every row past the exec rows and the vh_len row
+    tile_rows = rm.vhlen - rm.vh0 if wide else rm.rows_padded - S.X_N - 1
+    ring_step = lanes * _RING_STAGES * fields * elem
+
+    def smem(k):
+        return tile_rows * lanes * 4 + k * ring_step
+
+    def resident(k):
+        if smem(k) > card.block_smem:
+            return 0
+        return card.sm_smem // (smem(k) + card.reserved_smem)
+
+    if wide:
+        ksteps = next((k for k in range(_MAX_KSTEPS, 0, -1) if resident(k)),
+                      0)
+    else:
+        grid = -(-batch // lanes)
+        ksteps, rounds = 0, None
+        for k in range(1, _MAX_KSTEPS + 1):
+            if not resident(k):
+                break
+            r = -(-grid // (card.sms * resident(k)))
+            if rounds is None or r <= rounds:  # the last tie wins
+                rounds, ksteps = r, k
+    if not ksteps:
+        raise ValueError(
+            f"no event ring fits shared memory beside {tile_rows} state "
+            f"rows at {lanes} lanes a block")
+    vec = 16
+    while vec > elem and (batch * elem % vec or align % vec):
+        vec //= 2
+    return Plan(lanes, ksteps, vec, smem(ksteps), resident(ksteps), route)
+
+
+def _events_plan(events: torch.Tensor, rm: RowMap) -> Plan:
+    _, fields, batch = events.shape
+    return launch_plan(rm, batch, events.element_size(), fields,
+                       events.data_ptr() % 16, _build.card(events.device))
 
 
 def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
@@ -701,16 +758,15 @@ def _kernel_params(events: torch.Tensor, rm: RowMap, t0: int, t1: int,
     wide_mask = 0
     for c in wide_cols:
         wide_mask |= 1 << int(c)
-    route = replay_route(rm.rows_padded, B, *_card(events.device))
-    lanes = (_WIDE_LANES if route == "wide"
-             else lanes_per_block(rm.rows_padded, B))
+    plan = _events_plan(events, rm)
     hp = [
-        T, P, B, rm.rows_padded, t0, t1, lanes,
+        T, P, B, rm.rows_padded, t0, t1, plan.lanes_per_block,
         rm.exec0, rm.vh0, rm.vhlen, rm.act0, rm.tim0, rm.chd0, rm.rc0,
         rm.sg0,
         caps.max_activities, caps.max_timers, caps.max_children,
         caps.max_request_cancels, caps.max_signals_ext,
-        caps.max_version_items, wide_mask, ROUTES.index(route),
+        caps.max_version_items, wide_mask, ROUTES.index(plan.route),
+        plan.steps_per_stage, plan.request_bytes, plan.smem_bytes,
     ]
     hp += [phys[c] for c in range(S.EV_N)] + _base_list(base)
     assert len(hp) == _N_PARAMS
@@ -725,10 +781,6 @@ def _int32_matrix(name: str, m: torch.Tensor, dev, rows: int,
         raise ValueError(
             f"{name} must be a contiguous int32 [{rows}, {cols or 'n'}] "
             f"tensor on {dev}, got {m.dtype} {tuple(m.shape)} on {m.device}")
-
-
-def _device_index(dev) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _launch(events, rows, out, caps, base, wide_cols, t0, t1,
@@ -767,21 +819,11 @@ def _launch(events, rows, out, caps, base, wide_cols, t0, t1,
                     init_rows.data_ptr() or None, init_rows.shape[1]]
     if B == 0:
         return
-    from . import _build
-
-    lib = _build.load("replay_fsm")
     hp = _kernel_params(events, rm, t0, t1, base, wide_cols)
-    err = lib.cadence_replay_fsm(
-        events.data_ptr(), int(events.dtype == torch.int16),
-        rows.data_ptr(), out.data_ptr(), *seg_args,
-        hp.ctypes.data_as(ctypes.c_void_p), len(hp),
-        torch.cuda.current_stream(events.device).cuda_stream,
-        _device_index(events.device),
-    )
-    if err:
-        raise RuntimeError(
-            "replay_fsm kernel launch failed: "
-            + lib.cadence_cuda_error_string(err).decode())
+    _build.call("replay_fsm", "cadence_replay_fsm", events.device,
+                events.data_ptr(), int(events.dtype == torch.int16),
+                rows.data_ptr(), out.data_ptr(), *seg_args,
+                hp.ctypes.data_as(ctypes.c_void_p), len(hp))
     replay_rows.launches += 1
     replay_rows.wide_launches += int(hp[_ROUTE_PARAM])
 
@@ -852,32 +894,15 @@ def replay_rows_packed(events: torch.Tensor, rows: torch.Tensor,
         return out, out_rows
 
 
-def kernel_plan(events: torch.Tensor, caps: S.Capacities, base=None,
-                wide_cols: Sequence[int] = ()) -> dict:
-    """The launch geometry the kernel takes for ``events`` on its CUDA
-    device: lanes per block, steps per ring stage, bytes per copy
-    request, shared memory per block, resident blocks per SM, the route
-    (``replay_route``) and the resident warps per SM."""
-    from . import _build
-
-    lib = _build.load("replay_fsm")
-    rm = RowMap(caps)
-    hp = _kernel_params(events, rm, 0, events.shape[0], base, wide_cols)
-    res = np.zeros(5, np.int32)
-    err = lib.cadence_replay_fsm_plan(
-        events.data_ptr(), int(events.dtype == torch.int16),
-        hp.ctypes.data_as(ctypes.c_void_p), len(hp),
-        _device_index(events.device), res.ctypes.data_as(ctypes.c_void_p))
-    if err:
-        raise RuntimeError(
-            "replay_fsm plan failed: "
-            + lib.cadence_cuda_error_string(err).decode())
-    plan = dict(zip(("lanes_per_block", "steps_per_stage", "request_bytes",
-                     "smem_bytes", "blocks_per_sm"), res.tolist()))
-    plan["route"] = ROUTES[int(hp[_ROUTE_PARAM])]
-    plan["warps_per_sm"] = (plan["blocks_per_sm"] * plan["lanes_per_block"]
-                            // _WARP)
-    return plan
+def kernel_plan(events: torch.Tensor, caps: S.Capacities) -> dict:
+    """The launch geometry the kernel takes for ``events`` on its device
+    (``launch_plan``; off a CUDA card, on an H100): lanes per block,
+    steps per ring stage, bytes per copy request, shared memory per
+    block, resident blocks per SM, the route and the resident warps per
+    SM."""
+    plan = _events_plan(events, RowMap(caps))
+    return dict(plan._asdict(), warps_per_sm=(
+        plan.blocks_per_sm * plan.lanes_per_block // _build.WARP))
 
 
 # --------------------------------------------------------------------------

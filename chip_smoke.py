@@ -737,7 +737,7 @@ def phase_wide_route(torch, np, S, P, RC):
         "random": torch.randint(-5, 6, (rm.rows_padded, L), generator=rng,
                                 dtype=torch.int32).cuda(),
     }
-    plans = {s: RC.kernel_plan(evd, caps, base, wide)
+    plans = {s: RC.kernel_plan(evd, caps)
              for s, (evd, base, wide) in streams.items()}
     narrow = S.Capacities(**RETRY_CAPS)
     narrow_plan = RC.kernel_plan(
@@ -814,7 +814,7 @@ def phase_wide_route(torch, np, S, P, RC):
         out = torch.empty_like(rows0)
         ms = cuda_ms(lambda: RC.replay_rows(evd, rows0, caps, base, wide,
                                             out=out))
-        storm[f"plan_{stream}"] = RC.kernel_plan(evd, caps, base, wide)
+        storm[f"plan_{stream}"] = RC.kernel_plan(evd, caps)
         if stream == "int32":
             _, bound_ms, bound_by = bound(teb.nbytes, rm.rows_padded,
                                           WIDE_STORM_LANES, valid)
@@ -958,7 +958,7 @@ def time_kernel(torch, S, RC, m):
                            event_bytes=ev_bytes, h2d_s=h2d_s,
                            achieved_GBps=nbytes / (ms * 1e-3) / 1e9,
                            share_of_bound=bound_ms / ms,
-                           plan=RC.kernel_plan(evd, caps, base, wide))
+                           plan=RC.kernel_plan(evd, caps))
         del evd
         torch.cuda.empty_cache()
     return rec
@@ -1595,7 +1595,7 @@ def time_fsm_at(torch, S, RC, tiled):
         rec[stream] = dict(kernel_ms=ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=nbytes,
                            share_of_bound=bound_ms / ms,
-                           plan=RC.kernel_plan(evd, caps, base, wide))
+                           plan=RC.kernel_plan(evd, caps))
         del evd
     del teb
     torch.cuda.empty_cache()
@@ -1642,7 +1642,7 @@ def time_packed(torch, np, S, RC, caps, results):
             rec[stream] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, bytes=nbytes,
                                share_of_bound=bound_ms / ms,
-                               plan=RC.kernel_plan(evd, caps, base, wide))
+                               plan=RC.kernel_plan(evd, caps))
         out.append(rec)
     torch.cuda.empty_cache()
     return out

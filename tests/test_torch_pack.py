@@ -21,6 +21,7 @@ from cadence_tpu.testing.event_generator import HistoryFuzzer
 from cadence_tpu_torch.core.enums import (
     EventType, decision_attempt_increment,
 )
+from cadence_tpu_torch.ops import _build
 from cadence_tpu_torch.ops import pack as P
 from cadence_tpu_torch.ops import replay_cuda as RC
 from cadence_tpu_torch.ops import schema as S
@@ -173,7 +174,7 @@ def test_rowmap_sizes_and_block_lanes(caps, rows, lanes):
     assert RC.RowMap(caps).rows_padded == rows
     assert JRP.RowMap(jcaps(caps)).rows_padded == rows
     assert RC.lanes_per_block(rows) == lanes
-    assert rows * 4 * lanes <= 232448
+    assert rows * 4 * lanes <= _build.H100.block_smem
 
 
 def test_schema_constants_match_kernel_source():

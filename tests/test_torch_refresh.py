@@ -201,7 +201,7 @@ def test_refresh_plan_fits_shared_memory_and_covers_every_lane(
     # the slabs, each at a 16-byte boundary
     assert lane_bytes * lanes <= plan["smem_bytes"] < (
         lane_bytes * lanes + 6 * 16)
-    assert plan["smem_bytes"] <= 232448
+    assert plan["smem_bytes"] <= _build.H100.block_smem
     # the huge caps take the path past 48 KB, which chip_smoke.py keeps
     assert (plan["smem_bytes"] > 48 * 1024) == (caps is RS.HUGE_CAPS)
     slots = (1, caps.max_activities, caps.max_timers, caps.max_children,

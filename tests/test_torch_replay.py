@@ -34,6 +34,7 @@ from cadence_tpu_torch.core import history_factory as F
 from cadence_tpu_torch.core.enums import (
     EventType as E, ParentClosePolicy, TimeoutType,
 )
+from cadence_tpu_torch.ops import _build
 from cadence_tpu_torch.ops import pack as P
 from cadence_tpu_torch.ops import replay_cuda as RC
 from cadence_tpu_torch.ops import schema as S
@@ -593,7 +594,7 @@ def test_replay_rows_one_step_and_empty_windows_on_cpu(window):
 
 
 # --------------------------------------------------------------------------
-# the kernel's route, chosen from the shape alone
+# the kernel's launch plan, chosen from the shape alone
 # --------------------------------------------------------------------------
 
 # the deployments' capacities: retry_deep (R_pad 152), the default full
@@ -604,6 +605,7 @@ RETRY_DEEP_CAPS = S.Capacities(
 SERVE_CAPS = S.Capacities(
     max_events=512, max_activities=2, max_timers=2, max_children=2,
     max_request_cancels=2, max_signals_ext=4, max_version_items=2)
+PLAN_CAPS = {120: SERVE_CAPS, 152: RETRY_DEEP_CAPS, 944: S.Capacities()}
 ROUTE_CASES = [
     (RETRY_DEEP_CAPS, 262_144, "shared"),  # retry_deep storm
     (RETRY_DEEP_CAPS, 1_048_576, "shared"),  # retry_deep resume tail
@@ -613,21 +615,178 @@ ROUTE_CASES = [
     (SERVE_CAPS, 4_096, "shared"),  # the serving tick
 ]
 
+# The launch plans read on an H100 80GB HBM3 (power limit 700 W) from the
+# kernel library's own planner, which asked the CUDA runtime for the
+# card's attributes and, on the wide route, its occupancy calculator,
+# before the plan moved to Python: (R_pad, B, event dtype, P, the events'
+# base address modulo 16) -> (route, lanes per block, steps per ring
+# stage, request bytes, shared bytes a block, blocks per SM, warps per
+# SM). P is 16 for int32; 17 and 18 are the int16 narrow streams of the
+# retry_deep and ndc_storm histories (one and two wide columns). Every
+# ROUTE_CASES shape and every benchmark cell's is here.
+FROZEN_PLANS = [
+    (120, 64, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 64, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 64, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 256, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 256, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 256, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 2045, "int32", 16, 0, "shared", 32, 16, 4, 110336, 2, 2),
+    (120, 2045, "int16", 17, 0, "shared", 32, 16, 2, 64256, 3, 3),
+    (120, 2045, "int16", 18, 0, "shared", 32, 16, 2, 67328, 3, 3),
+    (120, 2046, "int32", 16, 0, "shared", 32, 16, 8, 110336, 2, 2),
+    (120, 2046, "int16", 17, 0, "shared", 32, 16, 4, 64256, 3, 3),
+    (120, 2046, "int16", 18, 0, "shared", 32, 16, 4, 67328, 3, 3),
+    (120, 4096, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 4096, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 4096, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 4224, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 4224, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 4224, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 4352, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 4352, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 4352, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 8192, "int32", 16, 0, "shared", 32, 16, 16, 110336, 2, 2),
+    (120, 8192, "int16", 17, 0, "shared", 32, 16, 16, 64256, 3, 3),
+    (120, 8192, "int16", 18, 0, "shared", 32, 16, 16, 67328, 3, 3),
+    (120, 16384, "int32", 16, 0, "shared", 64, 7, 16, 110080, 2, 4),
+    (120, 16384, "int16", 17, 0, "shared", 64, 14, 16, 115456, 2, 4),
+    (120, 16384, "int16", 18, 0, "shared", 64, 13, 16, 113920, 2, 4),
+    (120, 32768, "int32", 16, 0, "shared", 128, 2, 16, 97280, 2, 8),
+    (120, 32768, "int16", 17, 0, "shared", 128, 5, 16, 113408, 2, 8),
+    (120, 32768, "int16", 18, 0, "shared", 128, 4, 16, 103424, 2, 8),
+    (120, 65536, "int32", 16, 0, "shared", 128, 2, 16, 97280, 2, 8),
+    (120, 65536, "int16", 17, 0, "shared", 128, 5, 16, 113408, 2, 8),
+    (120, 65536, "int16", 18, 0, "shared", 128, 4, 16, 103424, 2, 8),
+    (120, 262144, "int32", 16, 0, "shared", 128, 1, 16, 72704, 3, 12),
+    (120, 262144, "int16", 17, 0, "shared", 128, 2, 16, 74240, 3, 12),
+    (120, 262144, "int16", 18, 0, "shared", 128, 2, 16, 75776, 3, 12),
+    (120, 1048576, "int32", 16, 0, "shared", 128, 1, 16, 72704, 3, 12),
+    (120, 1048576, "int16", 17, 0, "shared", 128, 2, 16, 74240, 3, 12),
+    (120, 1048576, "int16", 18, 0, "shared", 128, 2, 16, 75776, 3, 12),
+    (152, 64, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 64, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 64, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 256, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 256, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 256, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 2045, "int32", 16, 0, "shared", 32, 16, 4, 114432, 2, 2),
+    (152, 2045, "int16", 17, 0, "shared", 32, 16, 2, 68352, 3, 3),
+    (152, 2045, "int16", 18, 0, "shared", 32, 16, 2, 71424, 3, 3),
+    (152, 2046, "int32", 16, 0, "shared", 32, 16, 8, 114432, 2, 2),
+    (152, 2046, "int16", 17, 0, "shared", 32, 16, 4, 68352, 3, 3),
+    (152, 2046, "int16", 18, 0, "shared", 32, 16, 4, 71424, 3, 3),
+    (152, 4096, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 4096, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 4096, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 4224, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 4224, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 4224, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 4352, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 4352, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 4352, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 8192, "int32", 16, 0, "shared", 32, 16, 16, 114432, 2, 2),
+    (152, 8192, "int16", 17, 0, "shared", 32, 16, 16, 68352, 3, 3),
+    (152, 8192, "int16", 18, 0, "shared", 32, 16, 16, 71424, 3, 3),
+    (152, 16384, "int32", 16, 0, "shared", 64, 6, 16, 105984, 2, 4),
+    (152, 16384, "int16", 17, 0, "shared", 64, 12, 16, 110592, 2, 4),
+    (152, 16384, "int16", 18, 0, "shared", 64, 12, 16, 115200, 2, 4),
+    (152, 32768, "int32", 16, 0, "shared", 128, 2, 16, 113664, 2, 8),
+    (152, 32768, "int16", 17, 0, "shared", 128, 3, 16, 103680, 2, 8),
+    (152, 32768, "int16", 18, 0, "shared", 128, 3, 16, 105984, 2, 8),
+    (152, 65536, "int32", 16, 0, "shared", 128, 2, 16, 113664, 2, 8),
+    (152, 65536, "int16", 17, 0, "shared", 128, 3, 16, 103680, 2, 8),
+    (152, 65536, "int16", 18, 0, "shared", 128, 3, 16, 105984, 2, 8),
+    (152, 262144, "int32", 16, 0, "shared", 128, 2, 16, 113664, 2, 8),
+    (152, 262144, "int16", 17, 0, "shared", 128, 3, 16, 103680, 2, 8),
+    (152, 262144, "int16", 18, 0, "shared", 128, 3, 16, 105984, 2, 8),
+    (152, 1048576, "int32", 16, 0, "shared", 128, 2, 16, 113664, 2, 8),
+    (152, 1048576, "int16", 17, 0, "shared", 128, 3, 16, 103680, 2, 8),
+    (152, 1048576, "int16", 18, 0, "shared", 128, 3, 16, 105984, 2, 8),
+    (944, 64, "int32", 16, 0, "shared", 32, 16, 16, 215808, 1, 1),
+    (944, 64, "int16", 17, 0, "shared", 32, 16, 16, 169728, 1, 1),
+    (944, 64, "int16", 18, 0, "shared", 32, 16, 16, 172800, 1, 1),
+    (944, 256, "int32", 16, 0, "shared", 32, 16, 16, 215808, 1, 1),
+    (944, 256, "int16", 17, 0, "shared", 32, 16, 16, 169728, 1, 1),
+    (944, 256, "int16", 18, 0, "shared", 32, 16, 16, 172800, 1, 1),
+    (944, 2045, "int32", 16, 0, "shared", 32, 16, 4, 215808, 1, 1),
+    (944, 2045, "int16", 17, 0, "shared", 32, 16, 2, 169728, 1, 1),
+    (944, 2045, "int16", 18, 0, "shared", 32, 16, 2, 172800, 1, 1),
+    (944, 2046, "int32", 16, 0, "shared", 32, 16, 8, 215808, 1, 1),
+    (944, 2046, "int16", 17, 0, "shared", 32, 16, 4, 169728, 1, 1),
+    (944, 2046, "int16", 18, 0, "shared", 32, 16, 4, 172800, 1, 1),
+    (944, 4096, "int32", 16, 0, "shared", 32, 16, 16, 215808, 1, 1),
+    (944, 4096, "int16", 17, 0, "shared", 32, 16, 16, 169728, 1, 1),
+    (944, 4096, "int16", 18, 0, "shared", 32, 16, 16, 172800, 1, 1),
+    (944, 4224, "int32", 16, 0, "shared", 32, 16, 16, 215808, 1, 1),
+    (944, 4224, "int16", 17, 0, "shared", 32, 16, 16, 169728, 1, 1),
+    (944, 4224, "int16", 18, 0, "shared", 32, 16, 16, 172800, 1, 1),
+    (944, 4352, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 4352, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 4352, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 8192, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 8192, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 8192, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 16384, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 16384, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 16384, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 32768, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 32768, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 32768, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 65536, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 65536, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 65536, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 262144, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 262144, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 262144, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (944, 1048576, "int32", 16, 0, "wide", 128, 9, 16, 229376, 1, 4),
+    (944, 1048576, "int16", 17, 0, "wide", 128, 16, 16, 217088, 1, 4),
+    (944, 1048576, "int16", 18, 0, "wide", 128, 16, 16, 229376, 1, 4),
+    (152, 4096, "int32", 16, 4, "shared", 32, 16, 4, 114432, 2, 2),
+    (152, 4096, "int32", 16, 8, "shared", 32, 16, 8, 114432, 2, 2),
+    (152, 4096, "int16", 17, 2, "shared", 32, 16, 2, 68352, 3, 3),
+    (152, 4096, "int16", 17, 4, "shared", 32, 16, 4, 68352, 3, 3),
+    (944, 32768, "int32", 16, 4, "wide", 128, 9, 4, 229376, 1, 4),
+    (944, 32768, "int32", 16, 8, "wide", 128, 9, 8, 229376, 1, 4),
+    (944, 32768, "int16", 17, 2, "wide", 128, 16, 2, 217088, 1, 4),
+    (944, 32768, "int16", 17, 4, "wide", 128, 16, 4, 217088, 1, 4),
+    (152, 262144, "int32", 16, 4, "shared", 128, 2, 4, 113664, 2, 8),
+    (152, 262144, "int32", 16, 8, "shared", 128, 2, 8, 113664, 2, 8),
+    (152, 262144, "int16", 17, 2, "shared", 128, 3, 2, 103680, 2, 8),
+    (152, 262144, "int16", 17, 4, "shared", 128, 3, 4, 103680, 2, 8),
+]
 
-def _shape_only_events(batch, t=4):
-    """[t, EV_N, batch] int32 events with no storage of their own: the
-    parameter block reads only their shape and device."""
-    return torch.zeros((), dtype=torch.int32).expand(t, S.EV_N, batch)
+
+def _events_at(batch, dtype, fields, offset, t=1):
+    """[t, fields, batch] events with no storage of their own, whose base
+    address is ``offset`` modulo 16: the plan reads only their shape,
+    dtype, device and address."""
+    buf = torch.zeros(16, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset // buf.element_size()].expand(t, fields, batch)
 
 
-@pytest.mark.parametrize("caps,batch,route", ROUTE_CASES,
-                         ids=[f"{RC.RowMap(c).rows_padded}x{b}"
-                              for c, b, _ in ROUTE_CASES])
-def test_replay_route_from_shape(caps, batch, route):
-    """Wide tables at more lanes than one warp a SM can hold take the wide
-    route; narrow tables, and wide tables at few lanes, the shared one."""
-    assert RC.RowMap(caps).rows_padded in (152, 944, 120)
-    assert RC.replay_route(RC.RowMap(caps).rows_padded, batch) == route
+@pytest.mark.parametrize(
+    "r_pad,batch,dtype,fields,offset,route,lanes,ksteps,vec,smem,blocks,"
+    "warps", FROZEN_PLANS,
+    ids=[f"{r}x{b}-{dt}-P{p}-at{o}" for r, b, dt, p, o, *_ in FROZEN_PLANS])
+def test_kernel_plan_matches_the_frozen_table(
+        r_pad, batch, dtype, fields, offset, route, lanes, ksteps, vec,
+        smem, blocks, warps):
+    """The plan, off the card an H100's, gives every key of the recorded
+    one: wide tables at more lanes than one warp an SM can hold take the
+    wide route, narrow tables and wide tables at few lanes the shared
+    one, at ``lanes_per_block``'s lanes."""
+    caps = PLAN_CAPS[r_pad]
+    assert RC.RowMap(caps).rows_padded == r_pad
+    ev = _events_at(batch, getattr(torch, dtype), fields, offset)
+    assert RC.kernel_plan(ev, caps) == dict(
+        lanes_per_block=lanes, steps_per_stage=ksteps, request_bytes=vec,
+        smem_bytes=smem, blocks_per_sm=blocks, route=route,
+        warps_per_sm=warps)
+    assert RC.replay_route(r_pad, batch) == route
+    if route == "shared":
+        assert RC.lanes_per_block(r_pad, batch) == lanes
 
 
 @pytest.mark.parametrize("caps,batch,route", ROUTE_CASES,
@@ -635,8 +794,9 @@ def test_replay_route_from_shape(caps, batch, route):
                               for c, b, _ in ROUTE_CASES])
 def test_kernel_params_carry_the_route(caps, batch, route):
     """The parameter block has the kernel's N_PARAMS entries and carries
-    the route where the kernel's Params has it, with the lanes per block
-    of that route."""
+    the plan (route, lanes, ring depth, request width, shared bytes) where
+    the kernel's Params has it; the ring's stages and depth bound and the
+    warp width are the kernel's."""
     src = (Path(__file__).resolve().parents[1]
            / "cadence_tpu_torch/ops/csrc/replay_fsm.cu").read_text()
     body = src[src.index("struct Params {"):]
@@ -654,10 +814,18 @@ def test_kernel_params_carry_the_route(caps, batch, route):
                 names.append(name)
     assert len(names) == RC._N_PARAMS
     assert names.index("route") == RC._ROUTE_PARAM
+    for name, value in (("STAGES", RC._RING_STAGES),
+                        ("MAX_KSTEPS", RC._MAX_KSTEPS),
+                        ("WARP", _build.WARP)):
+        assert f"constexpr int {name} = {value};" in src, name
     rm = RC.RowMap(caps)
-    hp = RC._kernel_params(_shape_only_events(batch), rm, 0, 4, None, ())
+    ev = _events_at(batch, torch.int32, S.EV_N, 0, t=4)
+    hp = RC._kernel_params(ev, rm, 0, 4, None, ())
     assert hp.dtype == np.int32 and len(hp) == RC._N_PARAMS
-    assert RC.ROUTES[hp[RC._ROUTE_PARAM]] == route
-    assert hp[names.index("lanes")] == (
-        128 if route == "wide" else RC.lanes_per_block(rm.rows_padded, batch))
+    plan = RC.kernel_plan(ev, caps)
+    assert RC.ROUTES[hp[RC._ROUTE_PARAM]] == plan["route"] == route
+    for name, key in (("lanes", "lanes_per_block"),
+                      ("ksteps", "steps_per_stage"),
+                      ("vec", "request_bytes"), ("smem", "smem_bytes")):
+        assert hp[names.index(name)] == plan[key], name
     assert hp[names.index("B")] == batch
